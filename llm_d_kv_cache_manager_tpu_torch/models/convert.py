@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .llama import LlamaConfig, Params
+from .quant import QuantizedTensor
 
 
 def _to_tensor(a: Any, device) -> torch.Tensor:
@@ -29,8 +30,17 @@ def _to_tensor(a: Any, device) -> torch.Tensor:
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig, device) -> Params:
-    """Convert a dense JAX Llama parameter tree (numpy leaves) for ``cfg``."""
+    """Convert a JAX Llama parameter tree (numpy leaves) for ``cfg``: dense
+    or MoE (3-D expert stacks, ``router``, ``q_norm``/``k_norm``), full
+    precision or int8. A JAX ``QuantizedTensor`` leaf — recognised by its
+    ``q`` and ``scale`` attributes, since this package imports nothing of
+    the JAX one — becomes the port's, with int8 codes and f32 scales."""
     def leaf(a):
+        if hasattr(a, "q") and hasattr(a, "scale"):
+            q, scale = _to_tensor(a.q, device), _to_tensor(a.scale, device)
+            if q.dtype != torch.int8 or scale.dtype != torch.float32:
+                raise ValueError(f"quantized leaf must be int8 codes and float32 scales, got {q.dtype}, {scale.dtype}")
+            return QuantizedTensor(q=q, scale=scale)
         t = _to_tensor(a, device)
         if t.dtype != cfg.dtype:
             raise ValueError(f"parameter dtype {t.dtype} does not match cfg.dtype {cfg.dtype}")

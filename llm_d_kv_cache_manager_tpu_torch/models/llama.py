@@ -1,17 +1,21 @@
-"""Llama-family dense decoder in PyTorch with a paged KV cache — the port of
-the JAX package's ``models/llama.py`` (dense subset).
+"""Llama-family decoder in PyTorch with a paged KV cache — the port of the
+JAX package's ``models/llama.py``: dense and sparse-MoE FFNs (single
+device; expert parallelism is not ported).
 
 - Parameters are a plain dict with the JAX pytree's keys (``embed``,
   ``final_norm``, ``layers[i].{attn_norm, wq, wk, wv, wo, mlp_norm,
-  w_gate, w_up, w_down}``, ``lm_head``) and its ``[in, out]`` layout, so
-  a JAX tree converts leaf by leaf (``models/convert.py``).
+  w_gate, w_up, w_down}`` plus ``router`` and ``[E, in, out]`` expert
+  stacks for MoE, ``lm_head``) and its ``[in, out]`` layout, so a JAX tree
+  converts leaf by leaf (``models/convert.py``). Any matmul weight may be
+  an int8 ``QuantizedTensor`` (``models/quant.py``); every use goes
+  through ``materialize``, as in the JAX model.
 - KV pools are ``[n_layers, total_pages, page_size, n_kv_heads, head_dim]``.
   JAX donates them to each call and gets new arrays back; here they are
   updated in place (``index_put_``) and returned for the same call shape.
 - Attention runs through ``ops.flash_prefill_paged`` (prefill) and
-  ``ops.paged_attention`` (decode): the Hopper kernels for CUDA tensors,
-  their plain versions for CPU tensors. Matrix products go to
-  ``torch.matmul``.
+  ``ops.paged_attention`` (decode), and routed MoE expert products through
+  ``ops.grouped_matmul``: the Hopper kernels for CUDA tensors, their plain
+  versions for CPU tensors. Dense matrix products go to ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from ..ops import (
     sample_tokens,
 )
 from ..ops.rope import RopeScalingConfig
+from .quant import QuantizedTensor, quantize_tensor
+from .quant import materialize as _w
 
 Params = dict[str, Any]
 
@@ -50,6 +56,23 @@ class LlamaConfig:
     qkv_bias: bool = False  # Qwen2-style
     qk_norm: bool = False  # Qwen3-style per-head RMSNorm on q/k before RoPE
     tie_word_embeddings: bool = False
+    n_experts: int = 0  # sparse-MoE FFN when > 0 (Mixtral/Qwen3-MoE style)
+    n_experts_per_tok: int = 2
+    # Expert FFN width when decoupled from the dense intermediate size
+    # (Qwen3-MoE); None = same as intermediate_size (Mixtral).
+    moe_intermediate_size: Optional[int] = None
+    # Renormalize the top-k gate weights (Mixtral always; Qwen3-MoE's
+    # norm_topk_prob flag).
+    norm_topk_prob: bool = True
+    # Expert dispatch: "routed" (sort by expert + grouped matmuls, expert
+    # FLOPs scale with top-k) or "dense" (masked einsum over ALL experts —
+    # the numerics oracle).
+    moe_dispatch: str = "routed"
+    # Grouped-matmul backend of the routed dispatch: "auto" (the Hopper
+    # kernels for CUDA tensors, the plain version for CPU tensors),
+    # "kernel" (the kernels; raises for CPU tensors) or "xla" (the plain
+    # version on any device — the JAX package's oracle setting).
+    moe_gmm: str = "auto"
     # Gemma-style variations: gated-GELU FFN ("gelu_tanh"), (1+w) RMSNorm
     # scaling (norm_offset=1.0), embeddings scaled by sqrt(hidden_size).
     hidden_act: str = "silu"
@@ -60,6 +83,10 @@ class LlamaConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden_size // self.n_heads
+
+    @property
+    def moe_inter(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
 
     def act_fn(self, x: torch.Tensor) -> torch.Tensor:
         if self.hidden_act == "silu":
@@ -104,20 +131,84 @@ TINY_GEMMA = LlamaConfig(
     dtype=torch.float32,
 )
 
+#: Qwen3-30B-A3B: 128-expert top-8 MoE with qk-norm, decoupled 768-wide
+#: experts, renormalized gates (its checkpoint config).
+QWEN3_30B_A3B = LlamaConfig(
+    vocab_size=151_936,
+    hidden_size=2_048,
+    intermediate_size=6_144,
+    n_layers=48,
+    n_heads=32,
+    n_kv_heads=4,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    rms_norm_eps=1e-6,
+    qk_norm=True,
+    n_experts=128,
+    n_experts_per_tok=8,
+    moe_intermediate_size=768,
+    norm_topk_prob=True,
+)
+
+#: Tiny Qwen3-MoE-shaped config (qk-norm + MoE) for tests / CPU dry-runs.
+TINY_QWEN3_MOE = LlamaConfig(
+    vocab_size=256,
+    hidden_size=64,
+    intermediate_size=128,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=24,
+    rope_theta=10_000.0,
+    rms_norm_eps=1e-6,
+    qk_norm=True,
+    n_experts=4,
+    n_experts_per_tok=2,
+    moe_intermediate_size=48,
+    norm_topk_prob=True,
+    dtype=torch.float32,
+)
+
+#: Tiny MoE config (Mixtral-shaped) for tests / CPU dry-runs.
+TINY_MOE = LlamaConfig(
+    vocab_size=256,
+    hidden_size=64,
+    intermediate_size=96,
+    n_layers=2,
+    n_heads=4,
+    n_kv_heads=2,
+    rope_theta=10_000.0,
+    n_experts=4,
+    n_experts_per_tok=2,
+    dtype=torch.float32,
+)
+
 
 def init_params(
-    cfg: LlamaConfig, generator: torch.Generator, device: torch.device | str
+    cfg: LlamaConfig,
+    generator: torch.Generator,
+    device: torch.device | str,
+    quantize: Optional[str] = None,
+    quantize_experts: bool = False,
 ) -> Params:
     """Random-init parameters on ``device``: every matrix is
     ``normal * fan_in**-0.5`` in float32, cast to ``cfg.dtype`` (the JAX
     package's init), drawn from ``generator`` (which must live on
-    ``device``) in a fixed order."""
+    ``device``) in a fixed order.
+
+    ``quantize="int8"`` quantizes each matmul weight the moment it is
+    created, so the full-precision tree is never resident. MoE expert
+    stacks stay in ``cfg.dtype`` unless ``quantize_experts``; the router
+    and the embedding are never quantized here."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     d, hd = cfg.hidden_size, cfg.hd
     n_q, n_kv, inter = cfg.n_heads, cfg.n_kv_heads, cfg.intermediate_size
 
-    def dense(shape, scale_dim):
+    def dense(shape, scale_dim, quantizable=True):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        return (w * scale_dim**-0.5).to(cfg.dtype)
+        w = (w * scale_dim**-0.5).to(cfg.dtype)
+        return quantize_tensor(w) if quantize and quantizable else w
 
     # Gemma's (1+w) convention stores w≈0 for an identity norm.
     def norm_init(shape):
@@ -133,10 +224,19 @@ def init_params(
             "wv": dense((d, n_kv * hd), d),
             "wo": dense((n_q * hd, d), n_q * hd),
             "mlp_norm": norm_init((d,)),
-            "w_gate": dense((d, inter), d),
-            "w_up": dense((d, inter), d),
-            "w_down": dense((inter, d), inter),
         }
+        if cfg.n_experts:
+            e, f = cfg.n_experts, cfg.moe_inter
+            # The router stays full precision: routing decisions are the
+            # most quantization-sensitive computation of an MoE.
+            layer["router"] = dense((d, e), d, quantizable=False)
+            layer["w_gate"] = dense((e, d, f), d, quantizable=quantize_experts)
+            layer["w_up"] = dense((e, d, f), d, quantizable=quantize_experts)
+            layer["w_down"] = dense((e, f, d), f, quantizable=quantize_experts)
+        else:
+            layer["w_gate"] = dense((d, inter), d)
+            layer["w_up"] = dense((d, inter), d)
+            layer["w_down"] = dense((inter, d), inter)
         if cfg.qkv_bias:
             layer["bq"] = torch.zeros((n_q * hd,), dtype=cfg.dtype, device=device)
             layer["bk"] = torch.zeros((n_kv * hd,), dtype=cfg.dtype, device=device)
@@ -147,7 +247,7 @@ def init_params(
         layers.append(layer)
 
     params: Params = {
-        "embed": dense((cfg.vocab_size, d), d),
+        "embed": dense((cfg.vocab_size, d), d, quantizable=False),
         "final_norm": norm_init((d,)),
         "layers": layers,
     }
@@ -176,9 +276,9 @@ def _inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
 
 def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor):
     b, s, d = x.shape
-    q = x @ layer["wq"]
-    k = x @ layer["wk"]
-    v = x @ layer["wv"]
+    q = x @ _w(layer["wq"], x.dtype)
+    k = x @ _w(layer["wk"], x.dtype)
+    v = x @ _w(layer["wv"], x.dtype)
     if cfg.qkv_bias:
         q = q + layer["bq"]
         k = k + layer["bk"]
@@ -192,15 +292,112 @@ def _qkv(layer: Params, cfg: LlamaConfig, x: torch.Tensor):
     return q, k, v
 
 
+def _moe_gates(layer: Params, cfg: LlamaConfig, x: torch.Tensor):
+    """Top-k routing shared by both dispatch strategies: softmax over ALL
+    expert logits in float32, top-k, renormalize the survivors (HF
+    Mixtral / Qwen3-MoE). Returns (values [..., k] f32, indices [..., k])."""
+    router_logits = (x @ layer["router"]).float()  # [..., E]
+    weights = torch.softmax(router_logits, dim=-1)
+    topv, topi = torch.topk(weights, cfg.n_experts_per_tok, dim=-1)
+    if cfg.norm_topk_prob:
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+    return topv, topi
+
+
+def _moe_mlp_dense(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Masked-dense sparse-MoE SwiGLU FFN (the numerics oracle): every
+    expert sees every token, non-selected contributions zeroed by the
+    gate."""
+    topv, topi = _moe_gates(layer, cfg, x)  # [b, s, k]
+    gates = (F.one_hot(topi, cfg.n_experts).float() * topv[..., None]).sum(dim=-2)
+    gate = cfg.act_fn(
+        torch.einsum("bsd,edf->ebsf", x, _w(layer["w_gate"], x.dtype)).float()
+    )
+    up = torch.einsum("bsd,edf->ebsf", x, _w(layer["w_up"], x.dtype)).float()
+    act = (gate * up).to(x.dtype)
+    return torch.einsum(
+        "ebsf,efd,bse->bsd", act, _w(layer["w_down"], x.dtype), gates.to(x.dtype)
+    )
+
+
+def _grouped_dot(cfg: LlamaConfig, row_group_ids: torch.Tensor):
+    """Grouped-matmul dispatcher for the routed MoE path, per
+    ``cfg.moe_gmm``. ``row_group_ids`` is the sorted expert id per row."""
+    from ..ops.gmm import grouped_matmul, grouped_matmul_plain
+
+    if cfg.moe_gmm not in ("auto", "kernel", "xla"):
+        raise ValueError(f"unknown moe_gmm {cfg.moe_gmm!r}")
+
+    def gdot(lhs, w, group_sizes):
+        if not isinstance(w, QuantizedTensor):
+            w = _w(w, lhs.dtype)
+        if cfg.moe_gmm == "xla":
+            return grouped_matmul_plain(lhs, w, group_sizes, row_group_ids=row_group_ids)
+        if cfg.moe_gmm == "kernel" and lhs.device.type != "cuda":
+            raise ValueError(f"moe_gmm='kernel' needs CUDA tensors, got {lhs.device}")
+        return grouped_matmul(lhs, w, group_sizes, row_group_ids=row_group_ids)
+
+    return gdot
+
+
+def _moe_mlp_routed(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """Routed sparse-MoE SwiGLU FFN: flatten the (token, slot) assignments,
+    sort them by expert (stable) so each expert's rows form one segment,
+    run the three FFN products as grouped matmuls over those segments, then
+    weight by the gate values and sum each token's k rows in float32.
+    Every shape is static in ``n*k`` (padded rows are routed too, as in
+    JAX), and nothing here reads a device value on the host."""
+    b, s, d = x.shape
+    n = b * s
+    k = cfg.n_experts_per_tok
+    xf = x.reshape(n, d)
+    topv, topi = _moe_gates(layer, cfg, xf)  # [n, k]
+
+    expert_ids = topi.reshape(-1)  # [n*k], (token, slot) order
+    order = torch.argsort(expert_ids, stable=True)
+    xs = xf[order // k]  # [n*k, d] gathered inputs, expert-contiguous
+    # Not bincount: on CUDA it reads its input's max on the host.
+    group_sizes = torch.zeros(cfg.n_experts, dtype=torch.int32, device=x.device)
+    group_sizes.scatter_add_(0, expert_ids, torch.ones_like(expert_ids, dtype=torch.int32))
+    gdot = _grouped_dot(cfg, expert_ids[order])
+
+    gate = cfg.act_fn(gdot(xs, layer["w_gate"], group_sizes).float())
+    up = gdot(xs, layer["w_up"], group_sizes).float()
+    act = (gate * up).to(x.dtype)
+    out = gdot(act, layer["w_down"], group_sizes)  # [n*k, d]
+
+    # Back to (token, slot) order, weight by the gates and sum the k slots
+    # in float32: JAX's scatter-add, in a fixed order (no atomics, so a
+    # pass gives the same bits every time).
+    out = out.float()[torch.argsort(order)].reshape(n, k, d)
+    combined = (out * topv[..., None]).sum(dim=1)
+    return combined.reshape(b, s, d).to(x.dtype)
+
+
+def _moe_mlp(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.moe_dispatch not in ("routed", "dense"):
+        raise ValueError(f"unknown moe_dispatch {cfg.moe_dispatch!r}")
+    if cfg.moe_dispatch == "routed":
+        return _moe_mlp_routed(layer, cfg, x)
+    return _moe_mlp_dense(layer, cfg, x)
+
+
 def _mlp(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.n_experts:
+        return _moe_mlp(layer, cfg, x)
     # Activation in float32, as the JAX package computes it.
-    gate = cfg.act_fn((x @ layer["w_gate"]).float())
-    up = (x @ layer["w_up"]).float()
-    return (gate * up).to(x.dtype) @ layer["w_down"]
+    gate = cfg.act_fn((x @ _w(layer["w_gate"], x.dtype)).float())
+    up = (x @ _w(layer["w_up"], x.dtype)).float()
+    return (gate * up).to(x.dtype) @ _w(layer["w_down"], x.dtype)
 
 
 def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    h = params["embed"][tokens.long()]
+    emb = params["embed"]
+    if isinstance(emb, QuantizedTensor):
+        # Gather int8 rows, then scale: the full table is never dequantized.
+        h = emb.q[tokens.long()].to(cfg.dtype) * emb.scale[0].to(cfg.dtype)
+    else:
+        h = emb[tokens.long()]
     if cfg.scale_embeddings:  # Gemma: normalizer folded out of the table
         h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype, device=h.device)
     return h
@@ -208,7 +405,11 @@ def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tens
 
 def _logits(params: Params, cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    head = (
+        _w(params["embed"], h.dtype).T
+        if cfg.tie_word_embeddings
+        else _w(params["lm_head"], h.dtype)
+    )
     return (h @ head).float()
 
 
@@ -267,7 +468,7 @@ def prefill(
         attn = flash_prefill_paged(
             q, k, v, k_pages[li], v_pages[li], block_tables, ctx_lens, n_valid
         )
-        h = h + attn.reshape(b, s, -1) @ layer["wo"]
+        h = h + attn.reshape(b, s, -1) @ _w(layer["wo"], h.dtype)
         x = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         h = h + _mlp(layer, cfg, x)
         fresh_k.append(k)
@@ -313,7 +514,7 @@ def _decode_body(
             q[:, 0], k_pages, v_pages, block_tables, seq_lens, k[:, 0], v[:, 0],
             layer=li,
         )  # [b, n_heads, hd]
-        h = h + (attn.reshape(b, -1) @ layer["wo"])[:, None, :]
+        h = h + (attn.reshape(b, -1) @ _w(layer["wo"], h.dtype))[:, None, :]
         x = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         h = h + _mlp(layer, cfg, x)
         fresh_k.append(k)

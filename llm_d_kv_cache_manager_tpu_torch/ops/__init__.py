@@ -4,6 +4,13 @@ from .attention import prefill_with_paged_context
 from .flash_prefill import flash_prefill_paged, flash_prefill_plain
 from .paged_attention import paged_attention, paged_attention_reference
 from .sampling import sample_tokens
+# Last: gmm imports models.quant, whose package imports the names above.
+from .gmm import (
+    grouped_matmul,
+    grouped_matmul_bf16,
+    grouped_matmul_int8,
+    grouped_matmul_plain,
+)
 
 __all__ = [
     "sample_tokens",
@@ -15,4 +22,8 @@ __all__ = [
     "flash_prefill_plain",
     "paged_attention",
     "paged_attention_reference",
+    "grouped_matmul",
+    "grouped_matmul_bf16",
+    "grouped_matmul_int8",
+    "grouped_matmul_plain",
 ]

@@ -5,10 +5,11 @@ engine either prefills a batch of admitted prompts (suffix-only on
 prefix-cache hits) or decodes one token for every running sequence, samples
 on the device, and publishes ``BlockStored``/``BlockRemoved`` so the routing
 indexer tracks this replica's cache. The block manager and scheduler are
-the JAX package's own (copied verbatim). Knob-gated features of the JAX
-engine — host/remote tiers, transfer, quantization, speculative decoding,
-chunked prefill, fused multi-step decode, TP/SP — are not ported yet, and
-their config fields do not exist here.
+the JAX package's own (copied verbatim). Weight int8 quantization
+(``quantize``, ``quantize_experts``) is ported; the other knob-gated
+features of the JAX engine — host/remote tiers, transfer, int8 KV pages,
+speculative decoding, chunked prefill, fused multi-step decode, TP/SP —
+are not ported yet, and their config fields do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from ..kvcache.kvevents.events import Event
-from ..models import llama
+from ..models import llama, quant
 from ..models.llama import LlamaConfig
 from ..utils import get_logger
 from .block_manager import AllocationError, BlockManager, BlockManagerConfig
@@ -75,6 +76,14 @@ class EngineConfig:
     decode_pages_bucket: int = 16
     #: context block-table width bucket granularity for warm prefills
     prefill_ctx_bucket: int = 4
+    #: weight quantization: None (serve in model dtype) or "int8"
+    #: (symmetric per-output-channel weight-only int8, models/quant.py).
+    #: Applied to full-precision params; params that are already quantized
+    #: must be in the form these two fields ask for, or the engine raises.
+    quantize: Optional[str] = None
+    #: also quantize MoE expert stacks (they then run through the int8
+    #: grouped-matmul kernel)
+    quantize_experts: bool = False
     seed: int = 0
 
 
@@ -109,13 +118,30 @@ class Engine:
         )
         self.scheduler = Scheduler(self.block_manager, sched_cfg)
 
+        if config.quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize mode {config.quantize!r}")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = llama.init_params(cfg, gen, self.device)
+            params = llama.init_params(
+                cfg, gen, self.device,
+                quantize=config.quantize, quantize_experts=config.quantize_experts,
+            )
         elif params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, engine device is {self.device}"
             )
+        elif config.quantize is not None and not quant.is_quantized(params):
+            # The caller's full-precision tree stays alive during this; for
+            # a model near device capacity use init_params(quantize=...).
+            params = quant.quantize_params(params, quantize_experts=config.quantize_experts)
+        elif config.quantize is not None:
+            bad = quant.quantize_mismatch(params, quantize_experts=config.quantize_experts)
+            if bad is not None:
+                raise ValueError(
+                    f"params are already quantized, but {bad!r} is not in the form "
+                    f"quantize={config.quantize!r}, quantize_experts="
+                    f"{config.quantize_experts} asks for"
+                )
         self.params = params
         # Updated in place by every prefill / decode dispatch.
         self.k_pages, self.v_pages = llama.init_kv_pages(

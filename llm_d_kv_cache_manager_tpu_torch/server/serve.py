@@ -31,7 +31,15 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from ..kvcache.kvevents import ZMQPublisher, ZMQPublisherConfig
-from ..models import LLAMA_3_8B, TINY_GEMMA, TINY_LLAMA, LlamaConfig
+from ..models import (
+    LLAMA_3_8B,
+    QWEN3_30B_A3B,
+    TINY_GEMMA,
+    TINY_LLAMA,
+    TINY_MOE,
+    TINY_QWEN3_MOE,
+    LlamaConfig,
+)
 from ..utils import get_logger
 from .block_manager import BlockManagerConfig
 from .engine import Engine, EngineConfig
@@ -76,6 +84,8 @@ class PodServerConfig:
         eng.decode_batch_size = int(
             os.environ.get("DECODE_BATCH_SIZE", eng.decode_batch_size)
         )
+        # Weight quantization ("int8" halves weight bytes; models/quant.py).
+        eng.quantize = os.environ.get("QUANTIZE") or None
         return cfg
 
 
@@ -384,9 +394,12 @@ class PodServer:
 def _resolve_model(name: str) -> LlamaConfig:
     presets = {
         "tiny-llama": TINY_LLAMA,
+        "tiny-moe": TINY_MOE,
         "tiny-gemma": TINY_GEMMA,
+        "tiny-qwen3-moe": TINY_QWEN3_MOE,
         "meta-llama/Llama-3.1-8B-Instruct": LLAMA_3_8B,
         "meta-llama/Meta-Llama-3-8B": LLAMA_3_8B,
+        "Qwen/Qwen3-30B-A3B": QWEN3_30B_A3B,
     }
     if name in presets:
         return presets[name]

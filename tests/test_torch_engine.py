@@ -1,12 +1,17 @@
 """The port's ``Engine(device="cpu")`` against the JAX package's ``Engine``
 on the same parameters, driven through the scenarios of
 ``tests/test_engine.py`` (basics, prefix caching, event emission,
-preemption). In every scenario three things must be equal: greedy outputs
+preemption), on TINY_LLAMA and, as further cases of the same
+parametrisation, on TINY_MOE, TINY_QWEN3_MOE and a TINY_QWEN3_MOE engine
+with int8 weights and int8 experts (``quantize="int8",
+quantize_experts=True``, applied by each engine to the same full-precision
+parameters). In every scenario three things must be equal: greedy outputs
 (and what the engine reports about each request), ``prefill_stats
 ["tokens_computed"]``, and the emitted event lists compared as the msgpack
 bytes of ``EventBatch``.
 """
 
+import functools
 import time
 
 import jax
@@ -17,6 +22,7 @@ import torch
 from llm_d_kv_cache_manager_tpu.kvcache.kvevents.events import EventBatch as JEventBatch
 from llm_d_kv_cache_manager_tpu.models import TINY_LLAMA as J_TINY
 from llm_d_kv_cache_manager_tpu.models import llama as jl
+from llm_d_kv_cache_manager_tpu_torch.models import llama as tl
 from llm_d_kv_cache_manager_tpu.server import (
     BlockManagerConfig as JBM,
     Engine as JEngine,
@@ -25,7 +31,8 @@ from llm_d_kv_cache_manager_tpu.server import (
     SchedulerConfig as JSC,
 )
 from llm_d_kv_cache_manager_tpu_torch.kvcache.kvevents.events import EventBatch as TEventBatch
-from llm_d_kv_cache_manager_tpu_torch.models import TINY_LLAMA as T_TINY, params_from_jax
+from llm_d_kv_cache_manager_tpu_torch.models import params_from_jax
+from llm_d_kv_cache_manager_tpu_torch.models import quant as t_quant
 from llm_d_kv_cache_manager_tpu_torch.server import (
     BlockManagerConfig as TBM,
     Engine as TEngine,
@@ -36,6 +43,13 @@ from llm_d_kv_cache_manager_tpu_torch.server import (
 
 PS = 4
 MODEL = "tiny-llama"
+#: engine model -> (preset name in both packages, quantize mode)
+MODELS = {
+    "tiny-llama": ("TINY_LLAMA", None),
+    "tiny-moe": ("TINY_MOE", None),
+    "tiny-qwen3-moe": ("TINY_QWEN3_MOE", None),
+    "tiny-qwen3-moe-int8": ("TINY_QWEN3_MOE", "int8"),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,10 +60,16 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
+@functools.lru_cache(maxsize=None)
+def _params(preset):
+    """Full-precision parameters of ``preset``, JAX's and their port."""
+    jp = jl.init_params(jax.random.PRNGKey(0), getattr(jl, preset))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), getattr(tl, preset), "cpu")
+
+
 @pytest.fixture(scope="module")
 def params():
-    jp = jl.init_params(jax.random.PRNGKey(0), J_TINY)
-    return jp, params_from_jax(jax.tree.map(np.asarray, jp), T_TINY, "cpu")
+    return _params("TINY_LLAMA")
 
 
 def _prompt(seed, n):
@@ -59,23 +79,29 @@ def _prompt(seed, n):
 class _Side:
     """One framework's engine plus the events it emitted."""
 
-    def __init__(self, torch_side, params, total_pages, decode_batch, max_model_len, prefill_batch):
+    def __init__(self, torch_side, params, total_pages, decode_batch, max_model_len, prefill_batch,
+                 model="tiny-llama"):
         self.events = []
         sink = lambda evs: self.events.append(list(evs))  # noqa: E731
+        preset, quantize = MODELS[model]
+        knobs = dict(quantize=quantize, quantize_experts=quantize is not None)
         if torch_side:
             self.SP = TSP
             self.batch_cls = TEventBatch
-            cfg = TEC(model=T_TINY, block_manager=TBM(total_pages=total_pages, page_size=PS),
+            cfg = TEC(model=getattr(tl, preset),
+                      block_manager=TBM(total_pages=total_pages, page_size=PS),
                       scheduler=TSC(max_prefill_batch=prefill_batch),
-                      max_model_len=max_model_len, decode_batch_size=decode_batch, prefill_bucket=8)
+                      max_model_len=max_model_len, decode_batch_size=decode_batch, prefill_bucket=8,
+                      **knobs)
             self.eng = TEngine(cfg, params=params[1], on_events=sink, device="cpu")
         else:
             self.SP = JSP
             self.batch_cls = JEventBatch
-            cfg = JEC(model=J_TINY, block_manager=JBM(total_pages=total_pages, page_size=PS),
+            cfg = JEC(model=getattr(jl, preset),
+                      block_manager=JBM(total_pages=total_pages, page_size=PS),
                       scheduler=JSC(max_prefill_batch=prefill_batch),
                       max_model_len=max_model_len, decode_batch_size=decode_batch,
-                      prefill_bucket=8, interpret=True)
+                      prefill_bucket=8, interpret=True, **knobs)
             self.eng = JEngine(cfg, params=params[0], on_events=sink)
 
     def event_bytes(self):
@@ -245,11 +271,20 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", list(SCENARIOS))
-def test_engine_parity(params, name):
+# TINY_LLAMA cases keep the bare scenario name as their id.
+CASES = [
+    pytest.param(model, name, id=name if model == "tiny-llama" else f"{model}-{name}")
+    for model in MODELS
+    for name in SCENARIOS
+]
+
+
+@pytest.mark.parametrize("model,name", CASES)
+def test_engine_parity(model, name):
     fn, *shape = SCENARIOS[name]
-    jside = _Side(False, params, *shape)
-    tside = _Side(True, params, *shape)
+    params = _params(MODELS[model][0])
+    jside = _Side(False, params, *shape, model=model)
+    tside = _Side(True, params, *shape, model=model)
     jobs = [_observe(s) for s in fn(jside)]
     tobs = [_observe(s) for s in fn(tside)]
     assert tobs == jobs
@@ -289,3 +324,20 @@ def test_deadline_expiry_matches(params):
         done = s.eng.run_until_complete()
         assert done == [seq] and seq.finish_reason == "deadline" and seq.num_generated == 0
         assert s.eng.lifecycle_stats["deadline_shed"] == 1
+
+
+@pytest.mark.parametrize("quantize_experts", [False, True])
+def test_engine_holds_quantized_params_to_the_mode(quantize_experts):
+    """A tree that is already quantized is served only in the form the
+    config asks for: dense weights int8, expert stacks int8 exactly when
+    ``quantize_experts`` is set. A full-precision tree is quantized."""
+    full = _params("TINY_MOE")[1]
+    given = t_quant.quantize_params(full, quantize_experts=quantize_experts)
+    cfg = lambda qe: TEC(model=tl.TINY_MOE, quantize="int8", quantize_experts=qe)  # noqa: E731
+    eng = TEngine(cfg(quantize_experts), params=given, device="cpu")
+    assert eng.params is given
+    with pytest.raises(ValueError, match="'w_(gate|up|down)' is not in the form"):
+        TEngine(cfg(not quantize_experts), params=given, device="cpu")
+    eng = TEngine(cfg(quantize_experts), params=full, device="cpu")
+    assert t_quant.quantize_mismatch(eng.params, quantize_experts=quantize_experts) is None
+    assert t_quant.quantize_mismatch(full, quantize_experts=quantize_experts) == "lm_head"

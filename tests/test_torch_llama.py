@@ -1,5 +1,10 @@
-"""The port's dense Llama forward (``models/llama.py``) against the JAX
-package's, on the CPU, for TINY_LLAMA and TINY_GEMMA in float32.
+"""The port's Llama forward (``models/llama.py``) against the JAX
+package's, on the CPU, in float32: dense (TINY_LLAMA, TINY_GEMMA) and MoE
+(TINY_MOE, TINY_QWEN3_MOE, each also with int8 weights and int8 expert
+stacks, ``quantize="int8", quantize_experts=True``), and TINY_GEMMA with
+int8 weights and an int8 embedding (the JAX ``quantize_params(...,
+quantize_embed=True)``), which runs the port's quantized ``_embed`` and the
+tied head through ``materialize``.
 
 The JAX parameters are carried over with ``params_from_jax``; the same
 token/page inputs go through both. Tolerances: logits atol = rtol = 1e-4
@@ -15,8 +20,10 @@ import pytest
 import torch
 
 from llm_d_kv_cache_manager_tpu.models import llama as jl
+from llm_d_kv_cache_manager_tpu.models import quant as jq
 from llm_d_kv_cache_manager_tpu_torch.models import convert as t_convert
 from llm_d_kv_cache_manager_tpu_torch.models import llama as tl
+from llm_d_kv_cache_manager_tpu_torch.models import quant as t_quant
 
 LOGITS = dict(atol=1e-4, rtol=1e-4)
 POOL = dict(atol=1e-5, rtol=1e-5)
@@ -32,13 +39,27 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(params=["tiny-llama", "tiny-gemma"], scope="module")
+MODELS = {
+    "tiny-llama": ("TINY_LLAMA", None),
+    "tiny-gemma": ("TINY_GEMMA", None),
+    "tiny-moe": ("TINY_MOE", None),
+    "tiny-qwen3-moe": ("TINY_QWEN3_MOE", None),
+    "tiny-moe-int8": ("TINY_MOE", "int8"),
+    "tiny-qwen3-moe-int8": ("TINY_QWEN3_MOE", "int8"),
+    "tiny-gemma-int8-embed": ("TINY_GEMMA", "int8-embed"),
+}
+
+
+@pytest.fixture(params=list(MODELS), scope="module")
 def models(request):
-    jcfg, tcfg = {
-        "tiny-llama": (jl.TINY_LLAMA, tl.TINY_LLAMA),
-        "tiny-gemma": (jl.TINY_GEMMA, tl.TINY_GEMMA),
-    }[request.param]
-    jp = jl.init_params(jax.random.PRNGKey(3), jcfg)
+    preset, quantize = MODELS[request.param]
+    jcfg, tcfg = getattr(jl, preset), getattr(tl, preset)
+    if quantize == "int8-embed":
+        jp = jq.quantize_params(jl.init_params(jax.random.PRNGKey(3), jcfg), quantize_embed=True)
+        assert isinstance(jp["embed"], jq.QuantizedTensor)
+    else:
+        jp = jl.init_params(jax.random.PRNGKey(3), jcfg, quantize=quantize,
+                            quantize_experts=quantize is not None)
     tp = t_convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     return jcfg, tcfg, jp, tp
 
@@ -103,8 +124,11 @@ def test_params_from_jax_round_trip(models):
     jcfg, tcfg, jp, tp = models
     flat_j = jax.tree_util.tree_leaves_with_path(jp)
     assert len(flat_j) == sum(1 for _ in _leaves(tp))
-    np.testing.assert_array_equal(_np(tp["embed"]), np.asarray(jp["embed"]))
-    np.testing.assert_array_equal(_np(tp["layers"][1]["w_down"]), np.asarray(jp["layers"][1]["w_down"]))
+    for name in ("embed", "w_down"):
+        t_leaf = tp[name] if name == "embed" else tp["layers"][1][name]
+        j_leaf = jp[name] if name == "embed" else jp["layers"][1][name]
+        for t, j in zip(_leaves(t_leaf), jax.tree.leaves(j_leaf), strict=True):
+            np.testing.assert_array_equal(_np(t), np.asarray(j))
 
 
 def test_params_from_jax_bfloat16_through_uint16_view():
@@ -122,7 +146,9 @@ def test_params_from_jax_bfloat16_through_uint16_view():
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
+    if isinstance(tree, t_quant.QuantizedTensor):
+        yield from (tree.q, tree.scale)
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, list):

@@ -8,7 +8,8 @@
   without CUDA, ``Engine(cfg)`` raises instead of silently running on the
   CPU.
 - A kernel wrapper takes its plain version only for CPU tensors, and never
-  counts that as a launch; any other device goes to the kernel or raises.
+  counts that as a launch; any other device goes to the kernel or raises
+  (paged decode, flash prefill, and the bf16 and int8 grouped matmuls).
 """
 
 import subprocess
@@ -101,6 +102,27 @@ def test_cpu_call_uses_plain_version_and_never_counts(wrapper, make_args, kw):
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*make_args("meta"), **kw)
     assert wrapper.launches == 0
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["grouped_matmul_bf16", "grouped_matmul_int8"])
+def test_grouped_matmul_cpu_uses_plain_version_and_never_counts(quantized):
+    from llm_d_kv_cache_manager_tpu_torch.models import quantize_tensor
+
+    def args(device):
+        rng = np.random.default_rng(2)
+        lhs = torch.from_numpy(rng.standard_normal((10, 32)).astype(np.float32)).to(device)
+        w = torch.from_numpy(rng.standard_normal((3, 32, 16)).astype(np.float32)).to(device)
+        gs = torch.tensor([4, 0, 6], dtype=torch.int32, device=device)
+        rgi = torch.tensor([0] * 4 + [2] * 6, dtype=torch.int32, device=device)
+        return lhs, (quantize_tensor(w) if quantized else w), gs, rgi
+
+    lhs, rhs, gs, rgi = args("cpu")
+    out = ops.grouped_matmul(lhs, rhs, gs, row_group_ids=rgi)
+    assert torch.isfinite(out).all() and out.shape == (10, 16)
+    lhs, rhs, gs, rgi = args("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.grouped_matmul(lhs, rhs, gs, row_group_ids=rgi)
+    assert ops.grouped_matmul_bf16.launches == 0 and ops.grouped_matmul_int8.launches == 0
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():

@@ -151,10 +151,51 @@ def test_shutdown_fails_outstanding_and_rejects_submits():
 
 
 def test_resolve_model_presets():
+    from llm_d_kv_cache_manager_tpu_torch import models
+
     assert _resolve_model("tiny-llama") is TINY_LLAMA
     assert _resolve_model("meta-llama/Llama-3.1-8B-Instruct").n_layers == 32
+    assert _resolve_model("tiny-moe") is models.TINY_MOE
+    assert _resolve_model("tiny-qwen3-moe") is models.TINY_QWEN3_MOE
+    a3b = _resolve_model("Qwen/Qwen3-30B-A3B")
+    assert a3b is models.QWEN3_30B_A3B
+    assert (a3b.n_layers, a3b.hidden_size, a3b.n_heads, a3b.n_kv_heads, a3b.hd) == (48, 2048, 32, 4, 128)
+    assert (a3b.n_experts, a3b.n_experts_per_tok, a3b.moe_inter, a3b.vocab_size) == (128, 8, 768, 151_936)
+    assert a3b.qk_norm and a3b.norm_topk_prob and a3b.moe_gmm == "auto"
     with pytest.raises(SystemExit):
         _resolve_model("unknown/model")
+
+
+def test_quantize_env_reaches_engine_of_moe_pod(monkeypatch):
+    """``MODEL_NAME``/``QUANTIZE`` from the environment: the pod serves the
+    tiny Qwen3-MoE preset with int8 weights (experts stay full precision —
+    the JAX pod has no knob for them either), and its greedy tokens equal a
+    directly built engine's."""
+    from llm_d_kv_cache_manager_tpu_torch.models import QuantizedTensor
+
+    monkeypatch.setenv("MODEL_NAME", "tiny-qwen3-moe")
+    monkeypatch.setenv("QUANTIZE", "int8")
+    monkeypatch.setenv("TOTAL_PAGES", "64")
+    monkeypatch.setenv("BLOCK_SIZE", str(PS))
+    monkeypatch.setenv("PUBLISH_EVENTS", "0")
+    cfg = PodServerConfig.from_env()
+    assert cfg.engine.quantize == "int8" and not cfg.engine.quantize_experts
+    cfg.engine.model = _resolve_model(cfg.model_name)
+    server = PodServer(cfg, device="cpu")
+    layer = server.engine.params["layers"][0]
+    assert isinstance(layer["wq"], QuantizedTensor) and not isinstance(layer["w_gate"], QuantizedTensor)
+    direct = Engine(cfg.engine, device="cpu")
+    prompt = _prompt(9, 11)
+    ref = direct.add_request(prompt, SamplingParams(max_new_tokens=4))
+    direct.run_until_complete()
+    server.start()
+    try:
+        seq = server.generate(prompt, SamplingParams(max_new_tokens=4), timeout=120)
+    finally:
+        server.shutdown()
+    assert seq.output_tokens == ref.output_tokens and len(seq.generated_tokens) == 4
+    monkeypatch.setenv("QUANTIZE", "")
+    assert PodServerConfig.from_env().engine.quantize is None
 
 
 def test_jax_indexer_routes_repeat_to_torch_pod_in_mixed_fleet():
