@@ -1,12 +1,14 @@
 """GPU smoke test of the PyTorch/CUDA port: builds the Hopper kernels, holds
 each against its plain PyTorch version at the shapes the serving paths
-give it (Llama-3.1-8B attention; Qwen3-30B-A3B attention at GQA group 8
-and its grouped expert matmuls, bf16 and int8), runs one routed MoE layer
-under ``torch.cuda.set_sync_debug_mode("error")``, then serves three
-workloads through the port's ``Engine`` and ``PodServer`` — Llama-3.1-8B,
+give it (Llama-3.1-8B attention, over bf16 and over int8 KV pages;
+Qwen3-30B-A3B attention at GQA group 8 and its grouped expert matmuls,
+bf16 and int8), runs one routed MoE layer under
+``torch.cuda.set_sync_debug_mode("error")``, then serves four workloads
+through the port's ``Engine`` and ``PodServer`` — Llama-3.1-8B,
 Qwen3-30B-A3B with bf16 experts, Qwen3-30B-A3B with int8 weights and int8
-experts, all at full width and depth with random weights from a seed —
-and checks what comes out.
+experts, and Llama-3.1-8B on int8 KV pages with chunked prefill (whose
+decode step also runs once under the sync debug mode), all at full width
+and depth with random weights from a seed — and checks what comes out.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -39,7 +42,9 @@ import torch.nn.functional as F
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 #: Each kernel is held, element by element, against its plain version run
-#: in float32 on the same inputs (the result not rounded to bf16):
+#: in float32 on the same inputs (the result not rounded to bf16; for the
+#: int8 pages, over the pool dequantized to float32, whose code * scale
+#: products are the float32 values the kernel forms in registers):
 #:   |out - ref| <= 2^-8 |ref| (+ 2^-8 ref_abs for flash_prefill) + 1e-4.
 #: 2^-8 |ref| bounds the kernel's one rounding of its output to bf16 (half an
 #: ulp). paged_decode keeps float32 probabilities, so that is all it may
@@ -59,6 +64,7 @@ F32_ULP = 2.0**-23
 KERNEL_ATOL = 1e-4
 TOL = {
     "paged_decode": "2^-8*|ref| + 1e-4 (ref in float32)",
+    "paged_decode_int8": "2^-8*|ref| + 1e-4 (ref in float32 over the dequantized pool)",
     "flash_prefill": "2^-8*|ref| + 2^-8*ref_abs + 1e-4 (ref in float32)",
     "grouped_matmul_bf16": "2^-8*|ref| + d*2^-23*ref_abs + 1e-4 (ref in float32)",
     "grouped_matmul_int8": "2^-8*|ref| + d*2^-23*ref_abs + 1e-4 (ref in float32, dequantized)",
@@ -198,6 +204,98 @@ def check_paged_decode(ops, dev, gen, n_kv=8):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": library_ms,
+        "shape": {"B": B, "n_q": n_q, "n_kv": n_kv, "hd": hd, "ps": ps,
+                  "seq_lens": seq_lens_l, "layer": 1},
+    }
+
+
+def check_paged_decode_int8(ops, dev, gen, n_kv=8, *, models, llama):
+    """K1q at K1's decode shapes over int8 pages: codes and scales made by
+    quantizing random bf16 pages through the port's own write path (every
+    page fresh, one scale per page per (layer, kv head)), held against the
+    float32 plain version over the pool dequantized to float32, with and
+    without the fresh token."""
+    B, n_q, hd, ps, layers = 8, 32, 128, 16, 2
+    seq_lens_l = [0, 1, 17, 300, 1024, 1500, 2047, 2048]
+    max_pages = 2048 // ps
+    page_counts = [-(-n // ps) for n in seq_lens_l]
+    n_pages = sum(page_counts)
+    P = n_pages + 64
+    bf = torch.bfloat16
+    pools = []
+    for _ in range(2):  # K, then V
+        codes = torch.zeros((layers, P, ps, n_kv, hd), dtype=torch.int8, device=dev)
+        scales = torch.zeros((layers, P, n_kv), dtype=torch.float32, device=dev)
+        fresh = torch.randn((layers, P, ps, n_kv, hd), generator=gen, device=dev).to(bf)
+        rows = torch.arange(P, dtype=torch.int32, device=dev)[:, None].expand(P, ps).contiguous()
+        slots = torch.arange(ps, dtype=torch.int32, device=dev)[None].expand(P, ps).contiguous()
+        llama._quantized_scatter_kv_all_layers(
+            codes, scales, fresh, rows, slots, torch.ones((P, ps), dtype=torch.bool, device=dev), slots
+        )
+        pools.append((codes, scales))
+        del fresh
+    (kq, ks), (vq, vs) = pools
+    perm = torch.randperm(P - 1, generator=gen, device=dev)[:n_pages] + 1
+    bt = torch.zeros((B, max_pages), dtype=torch.int32, device=dev)
+    off = 0
+    for i, k in enumerate(page_counts):
+        bt[i, :k] = perm[off : off + k].to(torch.int32)
+        off += k
+    seq_lens = torch.tensor(seq_lens_l, dtype=torch.int32, device=dev)
+    q = torch.randn((B, n_q, hd), generator=gen, device=dev).to(bf)
+    fk = torch.randn((B, n_kv, hd), generator=gen, device=dev).to(bf)
+    fv = torch.randn((B, n_kv, hd), generator=gen, device=dev).to(bf)
+    wide_k = models.dequantize_kv_pool(kq, ks, torch.float32)
+    wide_v = models.dequantize_kv_pool(vq, vs, torch.float32)
+    scales_kw = dict(k_scale=ks, v_scale=vs, layer=1)
+
+    cases = {}
+    for fresh in (False, True):
+        extra = (fk, fv) if fresh else ()
+        out = ops.paged_attention(q, kq, vq, bt, seq_lens, *extra, **scales_kw)
+        ref = ops.paged_attention_reference(q.float(), wide_k, wide_v, bt, seq_lens, *extra, layer=1)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"paged_decode_int8 produced non-finite values (fresh={fresh})")
+        if out[0].float().abs().max() != 0:
+            fail("paged_decode_int8: seq_len == 0 row is not zero")
+        cases[f"fresh={fresh}"] = held(out, ref)
+    del wide_k, wide_v
+    worst = max(c["err_over_allowance"] for c in cases.values())
+    if worst > 1:
+        fail(f"paged_decode_int8 differs from its plain version beyond {TOL['paged_decode_int8']}: {cases}")
+
+    # Timing at the engine's call form (fresh token, 5-D pools).
+    args = (q, kq, vq, bt, seq_lens, fk, fv)
+    ms = cuda_time_ms(lambda: ops.paged_attention(*args, **scales_kw))
+    plain_ms = cuda_time_ms(lambda: ops.paged_attention_reference(*args, **scales_kw), iters=5)
+    hist = sum(max(n - 1, 0) for n in seq_lens_l)
+    pages_read = sum(-(-max(n - 1, 0) // ps) for n in seq_lens_l)
+    n_bytes = (
+        hist * n_kv * hd * 2  # int8 K and V history
+        + pages_read * n_kv * 4 * 2  # one f32 K and V scale per page per head
+        + 2 * B * n_q * hd * 2  # q in, out
+        + 2 * B * n_kv * hd * 2  # fresh K/V
+        + B * max_pages * 4 + B * 4  # block tables, lengths
+    )
+    flops = 4 * n_q * hd * sum(seq_lens_l) + 2 * hist * n_kv * hd  # + dequantization
+    b_ms, b_by = bound_ms(n_bytes, flops)
+    return {
+        "name": "paged_decode_int8",
+        "route": "cuda",
+        "source": "llm_d_kv_cache_manager_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "llm_d_kv_cache_manager_tpu/ops/paged_attention.py:40 (quantized=True)",
+        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+        "err_over_allowance": worst,
+        "tol": TOL["paged_decode_int8"],
+        "cases": cases,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call attends over int8 pages with per-page scales",
         "shape": {"B": B, "n_q": n_q, "n_kv": n_kv, "hd": hd, "ps": ps,
                   "seq_lens": seq_lens_l, "layer": 1},
     }
@@ -500,11 +598,15 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 #: Each path is driven once, at full width and depth, with every launch
 #: count set to 0 just before it and read just after. The pod serves
 #: ``model`` (its preset name); ``quantize="int8"`` also quantizes the
-#: expert stacks.
+#: expert stacks; ``kv_quant_hbm="int8"`` keeps the KV pages as int8 codes
+#: and ``chunked_prefill`` sets the per-step prefill token budget (mixed
+#: prefill/decode steps).
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8"),
+    dict(label="llama_3_8b_kvq", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
+         kv_quant_hbm="int8", chunked_prefill=512, same_tokens_as="llama_3_8b"),
 )
 
 
@@ -512,19 +614,24 @@ def counters(ops) -> dict:
     """Each kernel's wrapper, which counts that kernel's launches."""
     return {
         "paged_decode": ops.paged_attention,
+        "paged_decode_int8": ops.paged_decode_int8,
         "flash_prefill": ops.flash_prefill_paged,
         "grouped_matmul_bf16": ops.grouped_matmul_bf16,
         "grouped_matmul_int8": ops.grouped_matmul_int8,
     }
 
 
-def expected_launches(cfg, quantize, prefill_dispatches: int, decode_dispatches: int) -> dict:
-    """One attention launch per layer per dispatch; for an MoE model three
-    grouped matmuls (gate, up, down) per layer per dispatch, on the int8
-    kernel when the experts are quantized."""
+def expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches: int,
+                      decode_dispatches: int) -> dict:
+    """One attention launch per layer per dispatch (decode on the int8
+    kernel over int8 pages); for an MoE model three grouped matmuls (gate,
+    up, down) per layer per dispatch, on the int8 kernel when the experts
+    are quantized."""
     n = cfg.n_layers
-    out = {"paged_decode": n * decode_dispatches, "flash_prefill": n * prefill_dispatches,
+    decode = "paged_decode_int8" if kv_quant_hbm else "paged_decode"
+    out = {"paged_decode": 0, "paged_decode_int8": 0, "flash_prefill": n * prefill_dispatches,
            "grouped_matmul_bf16": 0, "grouped_matmul_int8": 0}
+    out[decode] = n * decode_dispatches
     if cfg.n_experts:
         gmm = "grouped_matmul_int8" if quantize else "grouped_matmul_bf16"
         out[gmm] = 3 * n * (prefill_dispatches + decode_dispatches)
@@ -569,13 +676,15 @@ def routing_flips(a: list, b: list) -> tuple[torch.Tensor, torch.Tensor]:
     return flips, torch.stack([gap for _, gap in a])
 
 
-def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev) -> dict:
+def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev, kv_quant_hbm=None) -> dict:
     """First-token logits of one prompt, straight through the model on a
     scratch pool: the cold pass prefills the whole prompt; the warm pass
     prefills all but the last page, then the last page against that context
     (the flash kernel's block-table path). bf16 activations through every
     layer round at different places in the two passes; agreement within 5 %
-    of the logit range is the bar.
+    of the logit range is the bar. On an int8 pool (``kv_quant_hbm``) the
+    warm pass reads its context as int8 codes widened to bf16 while the
+    cold pass reads none, so the bar also covers the quantization.
 
     In an MoE a rounding-level difference can flip a near-tied top-k choice,
     and a flipped expert moves the result by far more than rounding. So for
@@ -587,7 +696,8 @@ def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev) -> dict:
     flip. The pinned pass is the check."""
     n = len(prompt)
     pages = n // ps + 1
-    kp, vp = models.init_kv_pages(cfg, pages + 1, ps, dev)
+    kp, vp = models.init_kv_pages(cfg, pages + 1, ps, dev, kv_quant_hbm=kv_quant_hbm)
+    scales = models.init_kv_scales(cfg, pages + 1, dev) if kv_quant_hbm else ()
     table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)
 
     def run_chunk(tokens, start):
@@ -601,11 +711,12 @@ def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev) -> dict:
             table[(pos.long() // ps)], pos % ps,
             table[:n_ctx][None].contiguous() if n_ctx else torch.zeros((1, 0), dtype=torch.int32, device=dev),
             torch.tensor([start], dtype=torch.int32, device=dev),
+            *scales,
         )[0][0]
 
     def warm_pass(pinned=None):
-        kp.zero_()
-        vp.zero_()
+        for pool in (kp, vp) + tuple(scales):
+            pool.zero_()
         split = n - ps
         ctx_pin = None if pinned is None else [ids[:split] for ids, _ in pinned]
         chunk_pin = None if pinned is None else [ids[split:] for ids, _ in pinned]
@@ -652,10 +763,11 @@ def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev) -> dict:
     return out
 
 
-def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
+def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dict:
     models, server, serve, kvblock = pkg["models"], pkg["server"], pkg["serve"], pkg["kvblock"]
     cfg = serve._resolve_model(path["model"])
     quantize = path["quantize"]
+    kv_quant_hbm = path.get("kv_quant_hbm")
     ps, n_prompts, prompt_len, shared_len, new_tokens, n_repeats = 16, 8, 1024, 512, 32, 2
 
     torch.cuda.reset_peak_memory_stats()
@@ -675,6 +787,8 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
             seed=SEED,
             quantize=quantize,
             quantize_experts=quantize is not None,
+            kv_quant_hbm=kv_quant_hbm,
+            scheduler=server.SchedulerConfig(chunked_prefill_tokens=path.get("chunked_prefill")),
         ),
         params=params,
         on_events=lambda evs: events.extend(evs),
@@ -690,20 +804,26 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
     def greedy():
         return server.SamplingParams(max_new_tokens=new_tokens)
 
-    phase = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0}
+    # Step time by what the step dispatched: a prefill, a decode, or both
+    # (a mixed step, with chunked prefill).
+    phase = {f"{kind}_{key}": 0 for kind in ("prefill", "decode", "mixed")
+             for key in ("s", "steps")}
+    phase.update(decode_tokens=0, mixed_decode_tokens=0)
 
     def drive():
         while eng.has_work:
-            d0 = eng.prefill_stats["dispatches"]
+            p0, d0 = eng.prefill_stats["dispatches"], eng.decode_stats["dispatches"]
             running = len(eng.scheduler.running)
             t = time.perf_counter()
             eng.step()
             dt = time.perf_counter() - t
-            if eng.prefill_stats["dispatches"] > d0:
-                phase["prefill_s"] += dt
-            else:
-                phase["decode_s"] += dt
-                phase["decode_tokens"] += running
+            prefilled = eng.prefill_stats["dispatches"] > p0
+            decoded = eng.decode_stats["dispatches"] > d0
+            kind = "mixed" if prefilled and decoded else "prefill" if prefilled else "decode"
+            phase[f"{kind}_s"] += dt
+            phase[f"{kind}_steps"] += 1
+            if decoded:
+                phase["mixed_decode_tokens" if prefilled else "decode_tokens"] += running
 
     # The main path: counts are zeroed just before it and read just after.
     # The first requests go to the engine directly; the repeats, which hit
@@ -725,6 +845,8 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
         pod.shutdown()
     launches = {name: wrapper.launches for name, wrapper in counters(ops).items()}
     torch.cuda.synchronize()
+    prefill_dispatches = eng.prefill_stats["dispatches"]
+    decode_dispatches = eng.decode_stats["dispatches"]
 
     # Checks on what came out.
     for seq in first + repeats:
@@ -744,15 +866,27 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
         missing = [h for h in db.prefix_hashes(p) if h not in stored]
         if missing:
             fail(f"{len(missing)} prompt block hashes never published as BlockStored")
-    prefill_dispatches = eng.prefill_stats["dispatches"]
-    decode_dispatches = eng._step_count - prefill_dispatches
     if prefill_dispatches == 0 or decode_dispatches == 0:
         fail(f"{path['label']}: {prefill_dispatches} prefill and {decode_dispatches} decode dispatches")
-    expected = expected_launches(cfg, quantize, prefill_dispatches, decode_dispatches)
+    if path.get("chunked_prefill") and phase["mixed_steps"] == 0:
+        fail(f"{path['label']}: chunked prefill made no mixed prefill/decode step")
+    expected = expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches, decode_dispatches)
     if launches != expected:
         fail(f"{path['label']}: kernel launches {launches} != expected {expected}")
+    greedy_tokens[path["label"]] = [list(s.generated_tokens) for s in first + repeats]
+    same = path.get("same_tokens_as")
+    extra = {}
+    if same:
+        # Reported without a bar: int8 KV pages may flip greedy tokens.
+        pairs = [(a, b) for sa, sb in zip(greedy_tokens[same], greedy_tokens[path["label"]])
+                 for a, b in zip(sa, sb)]
+        extra["greedy_tokens_equal_share_vs_" + same] = sum(a == b for a, b in pairs) / len(pairs)
+        extra["greedy_requests_equal_vs_" + same] = sum(
+            a == b for a, b in zip(greedy_tokens[same], greedy_tokens[path["label"]]))
+    if kv_quant_hbm:
+        extra["int8_decode_step"] = int8_decode_step(models, ops, eng, cfg, prompts, ps, dev)
 
-    logits = warm_vs_cold(models, pkg["llama"], eng.params, cfg, prompts[0], ps, dev)
+    logits = warm_vs_cold(models, pkg["llama"], eng.params, cfg, prompts[0], ps, dev, kv_quant_hbm)
 
     profile = profile_decode(eng, prompts, greedy)
     emit({
@@ -761,6 +895,8 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
         "served_as": path["model"],
         "quantize": quantize,
         "quantize_experts": quantize is not None,
+        "kv_quant_hbm": kv_quant_hbm,
+        "chunked_prefill_tokens": path.get("chunked_prefill"),
         "n_layers": cfg.n_layers,
         "card": card,
         "init_params_s": init_s,
@@ -776,15 +912,79 @@ def run_engine(pkg, ops, dev, card: str, path: dict) -> dict:
         "launches": launches,
         "block_stored_hashes": len(stored),
         "first_token_logits": logits,
-        "prefill_tokens_per_s": cold_computed / phase["prefill_s"],
+        # Prefill tokens over the steps that prefilled (mixed ones too);
+        # decode tokens over the steps that only decoded.
+        "prefill_tokens_per_s": cold_computed / (phase["prefill_s"] + phase["mixed_s"]),
         "decode_tokens_per_s": phase["decode_tokens"] / phase["decode_s"],
-        "prefill_s": phase["prefill_s"],
-        "decode_s": phase["decode_s"],
+        **phase,
+        "kv_pool_gib": sum(t.numel() * t.element_size() for t in
+                           (eng.k_pages, eng.v_pages, eng.k_scales, eng.v_scales)
+                           if t is not None) / 2**30,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "phase_wall_s": time.perf_counter() - t_phase,
+        **extra,
     })
     emit(dict(profile, model=path["label"]))
     return launches
+
+
+def int8_decode_step(models, ops, eng, cfg, prompts, ps, dev) -> dict:
+    """One ``decode_step`` of the engine's model on a scratch int8 pool (8
+    lanes, 260-token prompts prefilled first) under
+    ``torch.cuda.set_sync_debug_mode("error")``: the int8 write path and
+    K1q must not synchronise with the host. The lanes' last positions sit
+    inside a page, so the write requantizes carry pages. Then the step's
+    wall time (to a device sync) beside the same step on bf16 pages, 30
+    pairs in alternating order: what int8 pages cost a decode step."""
+    lanes, n = 8, 256 + 5
+    pages = lanes * (n // ps + 1) + 1
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev).view(lanes, -1)
+    tokens = torch.tensor([p[:n] for p in prompts[:lanes]], dtype=torch.int32, device=dev)
+    pos = torch.arange(n - 1, dtype=torch.int32, device=dev)[None].expand(lanes, -1).contiguous()
+    last = torch.full((lanes,), n - 1, dtype=torch.int32, device=dev)
+    pools = {}
+    for mode in ("int8", None):
+        pool = models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=mode)
+        if mode:
+            pool += models.init_kv_scales(cfg, pages, dev)
+        models.prefill(eng.params, cfg, tokens[:, :-1], pos, torch.ones_like(pos, dtype=torch.bool),
+                       pool[0], pool[1], torch.gather(table, 1, pos // ps), pos % ps,
+                       torch.zeros((lanes, 0), dtype=torch.int32, device=dev),
+                       torch.zeros((lanes,), dtype=torch.int32, device=dev), *pool[2:])
+        pools[mode or "bf16"] = pool
+
+    def step(mode):
+        pool = pools[mode]
+        scales = dict(k_scales=pool[2], v_scales=pool[3]) if mode == "int8" else {}
+        return models.decode_step(eng.params, cfg, tokens[:, -1].contiguous(), last, pool[0], pool[1],
+                                  table, last + 1, page_size=ps, **scales)[0]
+
+    torch.cuda.synchronize()
+    before = ops.paged_decode_int8.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = step("int8")
+    except RuntimeError as e:
+        fail(f"int8 decode_step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = ops.paged_decode_int8.launches - before
+    if launched != cfg.n_layers or not torch.isfinite(logits).all():
+        fail(f"int8 decode_step: {launched} K1q launches, finite={bool(torch.isfinite(logits).all())}")
+    wall = {"int8": [], "bf16": []}
+    for i in range(30):
+        for mode in (("int8", "bf16") if i % 2 else ("bf16", "int8")):
+            t = time.perf_counter()
+            step(mode)
+            torch.cuda.synchronize()
+            wall[mode].append((time.perf_counter() - t) * 1e3)
+    return {"sync_debug_error_ok": True, "lanes": lanes, "context_tokens": n - 1,
+            "paged_decode_int8_launches": launched,
+            "step_ms_median": {m: float(np.median(v)) for m, v in wall.items()},
+            "step_ms_quartiles": {m: np.percentile(v, [25, 75]).tolist() for m, v in wall.items()},
+            "step_ms_min": {m: min(v) for m, v in wall.items()},
+            "pairs_int8_slower": sum(a > b for a, b in zip(wall["int8"], wall["bf16"]))}
 
 
 def profile_decode(eng, prompts, greedy) -> dict:
@@ -793,9 +993,9 @@ def profile_decode(eng, prompts, greedy) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for p in prompts:
-        eng.add_request(p[:256], greedy())
-    eng.step()  # the prefill
+    seqs = [eng.add_request(p[:256], greedy()) for p in prompts]
+    while any(s.num_generated == 0 for s in seqs):
+        eng.step()  # the prefill (several chunks with chunked prefill)
     eng.step()  # one decode step outside the window
     steps = 4
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -874,16 +1074,20 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     decode, prefill = check_paged_decode(ops, dev, gen), check_flash_prefill(ops, dev, gen)
     free_cuda()
+    check_int8 = functools.partial(check_paged_decode_int8, models=models, llama=llama)
+    decode_int8 = check_int8(ops, dev, gen)
+    free_cuda()
     # The same kernels at Qwen3-30B-A3B's attention: 32 query heads over 4
     # KV heads (GQA group 8).
-    for entry, check in ((decode, check_paged_decode), (prefill, check_flash_prefill)):
+    checks = ((decode, check_paged_decode), (prefill, check_flash_prefill), (decode_int8, check_int8))
+    for entry, check in checks:
         group8 = check(ops, dev, gen, n_kv=4)
         if group8["err_over_allowance"] > 1:
             fail(f"{entry['name']} (group 8) differs from its plain version")
         entry["group8"] = {k: v for k, v in group8.items()
                            if k not in ("name", "route", "source", "replaces", "also_serves", "tol")}
         free_cuda()
-    kernels = [decode, prefill] + check_grouped_matmul(ops, models, dev, gen)
+    kernels = [decode, decode_int8, prefill] + check_grouped_matmul(ops, models, dev, gen)
     emit({"phase": "kernels", "allow_tf32": False, "cudnn_allow_tf32": False,
           "results": kernels, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -892,9 +1096,9 @@ def main() -> None:
     free_cuda()
 
     pkg = {"models": models, "llama": llama, "server": server, "serve": serve, "kvblock": kvblock}
-    by_path = {}
+    by_path, greedy_tokens = {}, {}
     for path in PATHS:
-        by_path[path["label"]] = run_engine(pkg, ops, dev, card, path)
+        by_path[path["label"]] = run_engine(pkg, ops, dev, card, path, greedy_tokens)
         free_cuda()
     for k in kernels:
         k["launches_by_path"] = {label: launches[k["name"]] for label, launches in by_path.items()}

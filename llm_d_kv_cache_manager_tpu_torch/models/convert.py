@@ -7,11 +7,14 @@ returns the port's dict of tensors on ``device`` — same keys, same
 bfloat16 numpy type, which ``torch.from_numpy`` refuses; they are
 reinterpreted through a ``uint16`` view, detected by dtype name so this
 module needs no ``ml_dtypes`` import.
+
+``kv_pools_from_jax`` carries a JAX engine's KV pools (numpy), int8 codes
+and scales included, so both packages can decode from one pool state.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -56,3 +59,27 @@ def params_from_jax(tree: dict, cfg: LlamaConfig, device) -> Params:
     if not cfg.tie_word_embeddings:
         params["lm_head"] = leaf(tree["lm_head"])
     return params
+
+
+def kv_pools_from_jax(
+    k_pages: Any,
+    v_pages: Any,
+    k_scales: Optional[Any] = None,
+    v_scales: Optional[Any] = None,
+    device="cpu",
+) -> tuple[torch.Tensor, ...]:
+    """A JAX engine's page pools ``[L, P, ps, n_kv, hd]`` (numpy: bf16,
+    f32 or int8 codes) as tensors on ``device``: ``(k_pages, v_pages)``, or
+    with the f32 scale pools ``[L, P, n_kv]`` of an int8 pool,
+    ``(k_pages, v_pages, k_scales, v_scales)``."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    pools = [_to_tensor(a, device) for a in (k_pages, v_pages)]
+    if k_scales is None:
+        return tuple(pools)
+    if pools[0].dtype != torch.int8:
+        raise ValueError(f"scales come with int8 pools, got {pools[0].dtype}")
+    scales = [_to_tensor(a, device) for a in (k_scales, v_scales)]
+    if scales[0].dtype != torch.float32 or scales[0].shape != pools[0].shape[:2] + pools[0].shape[3:4]:
+        raise ValueError(f"scales must be float32 [L, P, n_kv], got {scales[0].dtype} {tuple(scales[0].shape)}")
+    return tuple(pools + scales)

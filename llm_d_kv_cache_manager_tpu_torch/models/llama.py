@@ -12,6 +12,13 @@ device; expert parallelism is not ported).
 - KV pools are ``[n_layers, total_pages, page_size, n_kv_heads, head_dim]``.
   JAX donates them to each call and gets new arrays back; here they are
   updated in place (``index_put_``) and returned for the same call shape.
+- With ``KV_QUANT_HBM=int8`` the pools hold int8 codes and per-page f32
+  scale pools ``[n_layers, total_pages, n_kv_heads]`` ride beside them
+  (``k_scales``/``v_scales``): tokens are quantized as they are written
+  (``_quantized_scatter_kv_all_layers``), decode attention dequantizes in
+  its kernel, and prefill widens its context pages to the chunk's dtype
+  before the flash-prefill kernel. The forward passes then return the
+  scale pools after the page pools, as the JAX functions do.
 - Attention runs through ``ops.flash_prefill_paged`` (prefill) and
   ``ops.paged_attention`` (decode), and routed MoE expert products through
   ``ops.grouped_matmul``: the Hopper kernels for CUDA tensors, their plain
@@ -20,6 +27,7 @@ device; expert parallelism is not ported).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -34,6 +42,7 @@ from ..ops import (
     rope_frequencies,
     sample_tokens,
 )
+from ..ops.attention import widen_paged_context
 from ..ops.rope import RopeScalingConfig
 from .quant import QuantizedTensor, quantize_tensor
 from .quant import materialize as _w
@@ -257,18 +266,41 @@ def init_params(
 
 
 def init_kv_pages(
-    cfg: LlamaConfig, total_pages: int, page_size: int, device: torch.device | str
+    cfg: LlamaConfig,
+    total_pages: int,
+    page_size: int,
+    device: torch.device | str,
+    kv_quant_hbm: Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Zeroed K and V page pools:
-    ``[n_layers, total_pages, page_size, n_kv_heads, head_dim]``."""
+    ``[n_layers, total_pages, page_size, n_kv_heads, head_dim]``. With
+    ``kv_quant_hbm="int8"`` they hold int8 codes (half the bytes of a bf16
+    page); the scale pools come from :func:`init_kv_scales`."""
     shape = (cfg.n_layers, total_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    dtype = torch.int8 if kv_quant_hbm == "int8" else cfg.dtype
     return (
-        torch.zeros(shape, dtype=cfg.dtype, device=device),
-        torch.zeros(shape, dtype=cfg.dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
     )
 
 
-def _inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+def init_kv_scales(
+    cfg: LlamaConfig, total_pages: int, device: torch.device | str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed f32 scale pools ``[n_layers, total_pages, n_kv_heads]`` for
+    int8 page pools: one scale per page per (layer, kv head). Zero scales
+    dequantize to zeros, so a fresh int8 pool reads as a zeroed one."""
+    shape = (cfg.n_layers, total_pages, cfg.n_kv_heads)
+    return (
+        torch.zeros(shape, dtype=torch.float32, device=device),
+        torch.zeros(shape, dtype=torch.float32, device=device),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
+    # Cached: the host-to-device copy synchronises, and a decode step must
+    # not.
     return torch.from_numpy(
         rope_frequencies(cfg.hd, cfg.rope_theta, cfg.rope_scaling)
     ).to(device)
@@ -434,6 +466,87 @@ def _scatter_kv_pages_all_layers(
     return pages
 
 
+#: float32 bytes of fresh K or V quantized at once: the layers are
+#: independent, so a long prefill (8,192 tokens at Llama-3.1-8B widths is
+#: 1 GiB over its 32 layers) is quantized a few layers at a time.
+_QUANT_CHUNK_BYTES = 256 * 2**20
+
+
+def _quantized_scatter_kv_all_layers(
+    pages_q: torch.Tensor,  # [n_layers, total_pages, page_size, n_kv, hd] int8
+    scales: torch.Tensor,  # [n_layers, total_pages, n_kv] f32
+    fresh: torch.Tensor,  # [n_layers, b, s, n_kv, hd]
+    page_ids: torch.Tensor,  # [b, s]
+    slot_ids: torch.Tensor,  # [b, s]
+    valid: Optional[torch.Tensor],  # [b, s] bool; None = every row
+    positions: torch.Tensor,  # [b, s] absolute positions of the written tokens
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write-time quantization (``KV_QUANT_HBM=int8``), in place: the int8
+    counterpart of :func:`_scatter_kv_pages_all_layers`, keeping the
+    per-page-per-(layer, kv_head) symmetric scales as it writes, with the
+    JAX function's arithmetic exactly (so codes and scales are equal).
+
+    Engine contracts it leans on: chunk positions are consecutive, ``valid``
+    is a right-padded prefix mask, and no page is shared between rows
+    (padded decode lanes all write reserved page 0 with the same token at
+    position 0, so those writers agree). Only a row's first page can hold
+    live codes, when its first position is not page-aligned (the "carry"
+    page: the decode write at slot != 0). Every other written page is
+    fresh: its scale restarts from 0 before the scatter-max, so a previous
+    tenant's scale cannot coarsen it. The carry page's codes are
+    requantized under its grown scale with the ratio ``s_old / s_new``
+    (unchanged bit for bit when the scale does not move).
+
+    No host synchronisation when ``valid`` is None (decode): JAX's dropped
+    writes become writes of unchanged values (a factor 1 on the scales of
+    pages that are not fresh, a ratio 1 on first pages that are not carry
+    pages). With a mask (prefill) the valid rows are selected first."""
+    L, P, ps, n_kv, hd = pages_q.shape
+    b, s = page_ids.shape
+    pid = page_ids.long()
+    first_page = pid[:, 0]  # [b]
+    carry = positions[:, 0].long() % ps != 0
+    if valid is not None:
+        carry = carry & valid[:, 0]
+    carry_page = torch.where(carry, first_page, torch.full_like(first_page, -1))
+    pidx = pid.reshape(-1)
+    sidx = slot_ids.reshape(-1).long()
+    # 0 zeroes a fresh page's scale; 1 leaves a carry page's.
+    keep_scale = (pid == carry_page[:, None]).reshape(-1).float()
+    keep = None
+    if valid is not None:
+        keep = valid.reshape(-1).nonzero().squeeze(1)
+        pidx, sidx, keep_scale = pidx[keep], sidx[keep], keep_scale[keep]
+    n = pidx.numel()
+    step = max(1, _QUANT_CHUNK_BYTES // max(1, n * n_kv * hd * 4))
+    for l0 in range(0, L, step):
+        pq, sc = pages_q[l0 : l0 + step], scales[l0 : l0 + step]  # views
+        nl = pq.shape[0]
+        x = fresh[l0 : l0 + step].reshape(nl, b * s, n_kv, hd)
+        x = (x if keep is None else x[:, keep]).float()  # [nl, n, n_kv, hd]
+        s_old = sc[:, first_page]  # [nl, b, n_kv], before this write
+
+        to_pages = pidx[None, :, None].expand(nl, n, n_kv)
+        sc.scatter_reduce_(1, to_pages, keep_scale[None, :, None].expand(nl, n, n_kv), "prod")
+        # Per-token symmetric scale candidates, scatter-maxed into the pages.
+        cand = x.abs().amax(dim=-1).clamp(min=1e-8) / 127.0  # [nl, n, n_kv]
+        sc.scatter_reduce_(1, to_pages, cand, "amax")
+
+        # Requantize each carry page's resident codes under its grown scale.
+        s_new = sc[:, first_page]
+        grown = carry[None, :, None] & (s_new > 0)
+        ratio = torch.where(grown, s_old / s_new.clamp(min=1e-30), torch.ones_like(s_new))
+        old = pq[:, first_page].float()  # [nl, b, ps, n_kv, hd]
+        pq[:, first_page] = (
+            torch.round(old * ratio[:, :, None, :, None]).clamp_(-127, 127).to(torch.int8)
+        )
+
+        # Quantize the fresh tokens with their page's final scale; scatter.
+        s_tok = sc[:, pidx].clamp(min=1e-30)  # [nl, n, n_kv]
+        pq[:, pidx, sidx] = torch.round(x / s_tok[..., None]).clamp_(-127, 127).to(torch.int8)
+    return pages_q, scales
+
+
 def prefill(
     params: Params,
     cfg: LlamaConfig,
@@ -446,28 +559,50 @@ def prefill(
     slot_ids: torch.Tensor,  # [b, s] destination slot per token
     block_tables: torch.Tensor,  # [b, max_ctx_pages] int32 — cached-context pages
     ctx_lens: torch.Tensor,  # [b] int32 — prefix-cached context length
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scales: Optional[torch.Tensor] = None,  # [n_layers, pages, n_kv] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, ...]:
     """Process a prompt chunk: returns (logits at the last valid position
     per sequence [b, vocab] f32, k_pages, v_pages), the pools written in
-    place. The chunk attends causally within itself and to ``ctx_lens``
-    tokens of context already in the pool.
+    place, with (k_scales, v_scales) appended for int8 pools. The chunk
+    attends causally within itself and to ``ctx_lens`` tokens of context
+    already in the pool. On int8 pools each layer's context pages are
+    widened to the chunk's dtype into a chunk-sized buffer, which the
+    flash-prefill kernel reads through an identity block table.
 
     Contract (the engine's): chunk positions are consecutive from
     ``ctx_lens`` and ``valid`` is a right-padded prefix mask; attention
     sees only the per-row count of valid tokens."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    quantized = k_scales is not None
     inv_freq = _inv_freq(cfg, tokens.device)
     h = _embed(params, cfg, tokens)  # [b, s, d]
     n_valid = valid.sum(dim=1, dtype=torch.int32)
     b, s = tokens.shape
+    if quantized:
+        ctx_pages = block_tables.shape[1]
+        wide_tables = torch.arange(
+            b * ctx_pages, dtype=torch.int32, device=tokens.device
+        ).view(b, ctx_pages)
+        wide_shape = (b * ctx_pages,) + tuple(k_pages.shape[2:])
     fresh_k, fresh_v = [], []
     for li, layer in enumerate(params["layers"]):
         x = rms_norm(h, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         q, k, v = _qkv(layer, cfg, x)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        attn = flash_prefill_paged(
-            q, k, v, k_pages[li], v_pages[li], block_tables, ctx_lens, n_valid
-        )
+        if quantized:
+            ctx_k = widen_paged_context(k_pages[li], k_scales[li], block_tables, k.dtype)
+            ctx_v = widen_paged_context(v_pages[li], v_scales[li], block_tables, v.dtype)
+            attn = flash_prefill_paged(
+                q, k, v, ctx_k.reshape(wide_shape), ctx_v.reshape(wide_shape),
+                wide_tables, ctx_lens, n_valid,
+            )
+        else:
+            attn = flash_prefill_paged(
+                q, k, v, k_pages[li], v_pages[li], block_tables, ctx_lens, n_valid
+            )
         h = h + attn.reshape(b, s, -1) @ _w(layer["wo"], h.dtype)
         x = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         h = h + _mlp(layer, cfg, x)
@@ -475,11 +610,20 @@ def prefill(
         fresh_v.append(v)
     # In-chunk attention never reads the chunk's own pages (its K/V ride
     # the arguments), so every layer's write is deferred to one update.
-    _scatter_kv_pages_all_layers(k_pages, torch.stack(fresh_k), page_ids, slot_ids, valid)
-    _scatter_kv_pages_all_layers(v_pages, torch.stack(fresh_v), page_ids, slot_ids, valid)
+    if quantized:
+        _quantized_scatter_kv_all_layers(
+            k_pages, k_scales, torch.stack(fresh_k), page_ids, slot_ids, valid, positions
+        )
+        _quantized_scatter_kv_all_layers(
+            v_pages, v_scales, torch.stack(fresh_v), page_ids, slot_ids, valid, positions
+        )
+    else:
+        _scatter_kv_pages_all_layers(k_pages, torch.stack(fresh_k), page_ids, slot_ids, valid)
+        _scatter_kv_pages_all_layers(v_pages, torch.stack(fresh_v), page_ids, slot_ids, valid)
     last_idx = (n_valid.long() - 1).clamp(min=0)
     h_last = h[torch.arange(b, device=h.device), last_idx]  # [b, d]
-    return _logits(params, cfg, h_last[:, None, :])[:, 0], k_pages, v_pages
+    logits = _logits(params, cfg, h_last[:, None, :])[:, 0]
+    return (logits, k_pages, v_pages) + ((k_scales, v_scales) if quantized else ())
 
 
 def _decode_body(
@@ -492,10 +636,12 @@ def _decode_body(
     block_tables: torch.Tensor,  # [b, max_pages] int32
     seq_lens: torch.Tensor,  # [b] int32 — context length INCLUDING this token
     page_size: int,
+    k_scales: Optional[torch.Tensor] = None,  # [n_layers, pages, n_kv] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step: attention over the pages plus the current token,
-    then this token's K/V written into its page slot (in place). Returns
-    logits [b, vocab] f32."""
+    then this token's K/V written into its page slot (in place, quantized
+    on int8 pools). Returns logits [b, vocab] f32."""
     inv_freq = _inv_freq(cfg, tokens.device)
     b = tokens.shape[0]
     h = _embed(params, cfg, tokens)[:, None, :]  # [b, 1, d]
@@ -509,18 +655,27 @@ def _decode_body(
         q = apply_rope(q, positions[:, None], inv_freq)
         k = apply_rope(k, positions[:, None], inv_freq)
         # The pages hold only history; this token's K/V ride the call, so
-        # the pool write happens once for all layers after the loop.
+        # the pool write happens once for all layers after the loop. The
+        # full 5-D pool (and 3-D scale pool) is read in place at `li`.
         attn = paged_attention(
             q[:, 0], k_pages, v_pages, block_tables, seq_lens, k[:, 0], v[:, 0],
-            layer=li,
+            k_scale=k_scales, v_scale=v_scales, layer=li,
         )  # [b, n_heads, hd]
         h = h + (attn.reshape(b, -1) @ _w(layer["wo"], h.dtype))[:, None, :]
         x = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         h = h + _mlp(layer, cfg, x)
         fresh_k.append(k)
         fresh_v.append(v)
-    _scatter_kv_pages_all_layers(k_pages, torch.stack(fresh_k), my_page, my_slot, None)
-    _scatter_kv_pages_all_layers(v_pages, torch.stack(fresh_v), my_page, my_slot, None)
+    if k_scales is not None:
+        _quantized_scatter_kv_all_layers(
+            k_pages, k_scales, torch.stack(fresh_k), my_page, my_slot, None, positions[:, None]
+        )
+        _quantized_scatter_kv_all_layers(
+            v_pages, v_scales, torch.stack(fresh_v), my_page, my_slot, None, positions[:, None]
+        )
+    else:
+        _scatter_kv_pages_all_layers(k_pages, torch.stack(fresh_k), my_page, my_slot, None)
+        _scatter_kv_pages_all_layers(v_pages, torch.stack(fresh_v), my_page, my_slot, None)
     return _logits(params, cfg, h)[:, 0]
 
 
@@ -535,14 +690,20 @@ def decode_step(
     seq_lens: torch.Tensor,
     *,
     page_size: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, ...]:
     """One decode step; returns (logits [b, vocab] f32, k_pages, v_pages),
-    the pools written in place. Sampling stays with the caller."""
+    the pools written in place, with (k_scales, v_scales) appended for
+    int8 pools. Sampling stays with the caller."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
     logits = _decode_body(
         params, cfg, tokens, positions, k_pages, v_pages, block_tables,
-        seq_lens, page_size,
+        seq_lens, page_size, k_scales, v_scales,
     )
-    return logits, k_pages, v_pages
+    extra = (k_scales, v_scales) if k_scales is not None else ()
+    return (logits, k_pages, v_pages) + extra
 
 
 def decode_steps(
@@ -561,18 +722,24 @@ def decode_steps(
     *,
     page_size: int,
     num_steps: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, ...]:
     """``num_steps`` decode iterations with on-device sampling; returns
-    (sampled tokens [b, num_steps] int32, k_pages, v_pages). The caller
-    pre-extends ``block_tables`` to cover the growth."""
+    (sampled tokens [b, num_steps] int32, k_pages, v_pages), with
+    (k_scales, v_scales) appended for int8 pools. The caller pre-extends
+    ``block_tables`` to cover the growth."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
     toks = []
     for _ in range(num_steps):
         logits = _decode_body(
             params, cfg, tokens, positions, k_pages, v_pages, block_tables,
-            seq_lens, page_size,
+            seq_lens, page_size, k_scales, v_scales,
         )
         tokens = sample_tokens(logits, temperature, top_k, top_p, generator)
         toks.append(tokens)
         positions = positions + 1
         seq_lens = seq_lens + 1
-    return torch.stack(toks, dim=1), k_pages, v_pages
+    extra = (k_scales, v_scales) if k_scales is not None else ()
+    return (torch.stack(toks, dim=1), k_pages, v_pages) + extra

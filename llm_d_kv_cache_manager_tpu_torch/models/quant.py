@@ -11,8 +11,11 @@ The numerics are the JAX module's exactly (``torch.round`` rounds half to
 even, as ``jnp.round`` does), so the codes of one weight are equal in both
 packages. Norms, biases, the embedding and the MoE router stay in the
 model dtype (an int8 embedding carried over from the JAX package is
-served: ``models/llama.py`` gathers its int8 rows). The KV-page half of
-the JAX module is not ported yet.
+served: ``models/llama.py`` gathers its int8 rows).
+
+Of the KV-page half, the device-pool helpers of ``KV_QUANT_HBM=int8`` are
+ported (the mode names, the scale-pool shape, and the full-width view of
+an int8 pool); the host-tier page quantizer waits for the host tier.
 """
 
 from __future__ import annotations
@@ -123,3 +126,28 @@ def param_bytes(params: Any) -> int:
         parts = (leaf.q, leaf.scale) if isinstance(leaf, QuantizedTensor) else (leaf,)
         total += sum(t.numel() * t.element_size() for t in parts)
     return total
+
+
+# -- int8 KV pages in device memory (KV_QUANT_HBM) ---------------------------
+
+#: modes accepted by the ``KV_QUANT_HBM`` knob. ``float8_e4m3`` is declared
+#: but rejected at engine init, as in the JAX package.
+KV_QUANT_HBM_MODES = ("int8", "float8_e4m3")
+
+
+def kv_hbm_scale_shape(pool_shape: tuple[int, ...]) -> tuple[int, ...]:
+    """Scale pool shape for an int8 KV pool ``[n_layers, total_pages,
+    page_size, n_kv_heads, head_dim]``: one f32 scale per page per
+    (layer, kv_head), ``[n_layers, total_pages, n_kv_heads]``."""
+    n_layers, total_pages, _, n_kv_heads, _ = pool_shape
+    return (n_layers, total_pages, n_kv_heads)
+
+
+def dequantize_kv_pool(
+    q: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """Full-width view of an int8 pool ``[..., P, ps, n_kv, hd]`` with
+    per-page scales ``[..., P, n_kv]``: ``code * scale`` in float32, cast
+    to ``dtype``. The tests' and the card check's oracle view; the serving
+    path never builds it (the decode kernel dequantizes in registers)."""
+    return (q.float() * scales.float()[..., None, :, None]).to(dtype)

@@ -1,8 +1,8 @@
 from .rmsnorm import rms_norm
 from .rope import apply_rope, rope_frequencies
-from .attention import prefill_with_paged_context
+from .attention import prefill_with_paged_context, widen_paged_context
 from .flash_prefill import flash_prefill_paged, flash_prefill_plain
-from .paged_attention import paged_attention, paged_attention_reference
+from .paged_attention import paged_attention, paged_attention_reference, paged_decode_int8
 from .sampling import sample_tokens
 # Last: gmm imports models.quant, whose package imports the names above.
 from .gmm import (
@@ -18,10 +18,12 @@ __all__ = [
     "apply_rope",
     "rope_frequencies",
     "prefill_with_paged_context",
+    "widen_paged_context",
     "flash_prefill_paged",
     "flash_prefill_plain",
     "paged_attention",
     "paged_attention_reference",
+    "paged_decode_int8",
     "grouped_matmul",
     "grouped_matmul_bf16",
     "grouped_matmul_int8",

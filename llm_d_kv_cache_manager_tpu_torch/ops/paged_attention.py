@@ -1,12 +1,15 @@
-"""Paged decode attention: the wrapper around the Hopper kernel
-``csrc/paged_decode.cu`` plus its plain PyTorch version.
+"""Paged decode attention: the wrappers around the Hopper kernels of
+``csrc/paged_decode.cu`` plus their plain PyTorch version.
 
 The KV pool layout is the JAX package's, ``[(n_layers,) total_pages,
 page_size, n_kv_heads, head_dim]``: page-major, so one token's
-``[n_kv, head_dim]`` write slice stays contiguous for the scatter.
+``[n_kv, head_dim]`` write slice stays contiguous for the scatter. With
+``KV_QUANT_HBM=int8`` the pools hold int8 codes and per-page f32 scales
+``[(n_layers,) total_pages, n_kv_heads]`` ride beside them.
 
 ``paged_attention`` dispatches on where its tensors live: CPU tensors go
-to ``paged_attention_reference``; CUDA tensors go to the kernel, or the call
+to ``paged_attention_reference``; CUDA tensors go to the kernel (K1 for
+bf16 pools, ``paged_decode_int8`` for int8 pools with scales), or the call
 raises. There is no fallback from one to the other.
 """
 
@@ -33,24 +36,37 @@ def paged_attention_reference(
     fresh_k: Optional[torch.Tensor] = None,  # [batch, n_kv_heads, head_dim]
     fresh_v: Optional[torch.Tensor] = None,
     *,
+    k_scale: Optional[torch.Tensor] = None,  # [(n_layers,) total_pages, n_kv] f32
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     layer: int = 0,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, float32 throughout: the
+    """The kernels' function in plain PyTorch, float32 throughout: the
     pages named by ``block_tables`` hold ``seq_len`` tokens, or
     ``seq_len - 1`` with the current token's K/V passed as ``fresh_k`` /
-    ``fresh_v``. A ``seq_len == 0`` row gives zeros. The result is cast to
-    ``q``'s dtype."""
+    ``fresh_v``. With ``k_scale``/``v_scale`` the pools hold int8 codes and
+    the gathered pages are dequantized in float32 (``code * scale``). A
+    ``seq_len == 0`` row gives zeros. The result is cast to ``q``'s
+    dtype."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
     if k_pages.dim() == 5:  # full multi-layer pool: a view, no copy
         k_pages, v_pages = k_pages[layer], v_pages[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     batch, n_heads, head_dim = q.shape
     _, page_size, n_kv_heads, _ = k_pages.shape
     group = n_heads // n_kv_heads
     if scale is None:
         scale = head_dim**-0.5
     T = block_tables.shape[1] * page_size
-    keys = k_pages[block_tables.long()].reshape(batch, T, n_kv_heads, head_dim)
-    vals = v_pages[block_tables.long()].reshape(batch, T, n_kv_heads, head_dim)
+    bt = block_tables.long()
+    keys, vals = k_pages[bt], v_pages[bt]  # [batch, max_pages, ps, n_kv, hd]
+    if k_scale is not None:
+        keys = keys.float() * k_scale[bt][:, :, None, :, None]
+        vals = vals.float() * v_scale[bt][:, :, None, :, None]
+    keys = keys.reshape(batch, T, n_kv_heads, head_dim)
+    vals = vals.reshape(batch, T, n_kv_heads, head_dim)
     hist = seq_lens.long()
     key_ok = torch.arange(T, device=q.device)[None, :] < (
         hist[:, None] - (1 if fresh_k is not None else 0)
@@ -78,10 +94,17 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"paged_attention (CUDA): {msg}")
 
 
-def _launch(q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v, scale, layer):
+def _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens, fresh_k, fresh_v,
+            scale, layer):
+    """Check the operands and launch K1 (``k_scale`` None: bf16 pools) or
+    K1q (int8 pools with f32 scales)."""
     dev = q.device
+    _check(dev.type == "cuda", f"the kernel needs CUDA tensors, got {dev}")
+    quantized = k_scale is not None
     if k_pages.dim() == 4:  # single-layer pool: layer 0 of a one-layer view
         k_pages, v_pages, layer = k_pages[None], v_pages[None], 0
+        if quantized:
+            k_scale, v_scale = k_scale[None], v_scale[None]
     _check(k_pages.dim() == 5 and v_pages.shape == k_pages.shape, "pools must be [L, P, ps, n_kv, hd]")
     n_layers, total_pages, page_size, n_kv, hd = k_pages.shape
     batch, n_q, qd = q.shape
@@ -91,9 +114,20 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v, scale
     _check(0 <= layer < n_layers, f"layer {layer} out of range")
     _check(block_tables.dim() == 2 and block_tables.shape[0] == batch, "block_tables must be [batch, max_pages]")
     _check(seq_lens.shape == (batch,), "seq_lens must be [batch]")
-    smem = 2 * page_size * (hd + 8) * 2 + (n_q // n_kv) * page_size * 4
+    row_bytes = hd * k_pages.element_size() + 16
+    smem = 2 * page_size * row_bytes + (n_q // n_kv) * page_size * 4
     _check(smem <= _MAX_SMEM, f"page_size {page_size} too large for the kernel's shared memory")
     tensors = [q, k_pages, v_pages, block_tables, seq_lens]
+    if quantized:
+        _check(k_scale.shape == (n_layers, total_pages, n_kv) and v_scale.shape == k_scale.shape,
+               "k_scale/v_scale must be [L, P, n_kv] beside [L, P, ps, n_kv, hd] pools")
+        _check(k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32,
+               "k_scale/v_scale must be float32")
+        _check(k_pages.dtype == torch.int8 and v_pages.dtype == torch.int8, "pools with scales must be int8")
+        tensors += [k_scale, v_scale]
+    else:
+        _check(k_pages.dtype == torch.bfloat16 and v_pages.dtype == torch.bfloat16,
+               "pools without scales must be bfloat16")
     if fresh_k is not None:
         _check(fresh_k.shape == (batch, n_kv, hd) and fresh_v.shape == fresh_k.shape, "fresh_k/v must be [batch, n_kv, hd]")
         tensors += [fresh_k, fresh_v]
@@ -101,17 +135,19 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v, scale
         _check(t.device == dev, "all tensors must be on one CUDA device")
         _check(t.is_contiguous(), "tensors must be contiguous")
         _check(t.data_ptr() % 16 == 0, "tensors must be 16-byte aligned")
-    for t in (q, k_pages, v_pages) + ((fresh_k, fresh_v) if fresh_k is not None else ()):
-        _check(t.dtype == torch.bfloat16, "q, pools and fresh K/V must be bfloat16")
+    for t in (q,) + ((fresh_k, fresh_v) if fresh_k is not None else ()):
+        _check(t.dtype == torch.bfloat16, "q and fresh K/V must be bfloat16")
     _check(block_tables.dtype == torch.int32 and seq_lens.dtype == torch.int32, "block_tables / seq_lens must be int32")
 
     lib = _build.load("paged_decode")
-    fn = lib.paged_decode_bf16
+    n_ptrs = 10 if quantized else 8
+    fn = lib.paged_decode_int8 if quantized else lib.paged_decode_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     out = torch.empty_like(q)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else ()
     err = fn(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
         block_tables.data_ptr(), seq_lens.data_ptr(),
         fresh_k.data_ptr() if fresh_k is not None else None,
         fresh_v.data_ptr() if fresh_v is not None else None,
@@ -119,8 +155,29 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v, scale
         batch, n_q, n_kv, hd, page_size, block_tables.shape[1], layer, total_pages,
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check_launch("paged_decode", err)
-    paged_attention.launches += 1
+    _build.check_launch("paged_decode_int8" if quantized else "paged_decode", err)
+    return out
+
+
+def paged_decode_int8(
+    q: torch.Tensor,  # [batch, n_heads, 128] bf16
+    k_pages: torch.Tensor,  # [(n_layers,) total_pages, page_size, n_kv, 128] int8
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,  # [(n_layers,) total_pages, n_kv] f32
+    v_scale: torch.Tensor,
+    block_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    fresh_k: Optional[torch.Tensor] = None,  # [batch, n_kv, 128] bf16
+    fresh_v: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    layer: int = 0,
+) -> torch.Tensor:
+    """K1q on the card: ``paged_attention`` over int8 pages, each page's
+    codes dequantized in registers with its (layer, kv head) scale."""
+    out = _launch(q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
+                  fresh_k, fresh_v, scale, layer)
+    paged_decode_int8.launches += 1
     return out
 
 
@@ -133,6 +190,8 @@ def paged_attention(
     fresh_k: Optional[torch.Tensor] = None,  # [batch, n_kv_heads, head_dim]
     fresh_v: Optional[torch.Tensor] = None,
     *,
+    k_scale: Optional[torch.Tensor] = None,  # [(n_layers,) total_pages, n_kv] f32
+    v_scale: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     layer: int = 0,
 ) -> torch.Tensor:
@@ -144,21 +203,36 @@ def paged_attention(
     ``fresh_k``/``fresh_v`` the current token's K/V come from these
     arguments and the pages hold the ``seq_len - 1`` earlier tokens, so
     the caller writes the pool after attention. A 5-D pool is read in
-    place at ``layer``. CUDA tensors launch ``csrc/paged_decode.cu``
-    (bfloat16); CPU tensors take ``paged_attention_reference``."""
+    place at ``layer``, with ``[L, P, n_kv]`` scales; a 4-D pool takes 2-D
+    ``[P, n_kv]`` scales. With ``k_scale``/``v_scale`` the pools hold int8
+    codes (``KV_QUANT_HBM=int8``). CUDA tensors launch
+    ``csrc/paged_decode.cu`` (K1 for bfloat16 pools, ``paged_decode_int8``
+    for int8 pools); CPU tensors take ``paged_attention_reference``."""
     if (fresh_k is None) != (fresh_v is None):
         raise ValueError("fresh_k and fresh_v must be passed together")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v,
-            scale=scale, layer=layer,
+            k_scale=k_scale, v_scale=v_scale, scale=scale, layer=layer,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, seq_lens, fresh_k, fresh_v, scale, layer)
+    if k_scale is not None:
+        return paged_decode_int8(
+            q, k_pages, v_pages, k_scale, v_scale, block_tables, seq_lens,
+            fresh_k, fresh_v, scale=scale, layer=layer,
+        )
+    out = _launch(q, k_pages, v_pages, None, None, block_tables, seq_lens,
+                  fresh_k, fresh_v, scale, layer)
+    paged_attention.launches += 1
+    return out
 
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts): K1's
+#: on ``paged_attention``, K1q's on ``paged_decode_int8``
 paged_attention.launches = 0
+paged_decode_int8.launches = 0

@@ -5,10 +5,14 @@ engine either prefills a batch of admitted prompts (suffix-only on
 prefix-cache hits) or decodes one token for every running sequence, samples
 on the device, and publishes ``BlockStored``/``BlockRemoved`` so the routing
 indexer tracks this replica's cache. The block manager and scheduler are
-the JAX package's own (copied verbatim). Weight int8 quantization
-(``quantize``, ``quantize_experts``) is ported; the other knob-gated
-features of the JAX engine — host/remote tiers, transfer, int8 KV pages,
-speculative decoding, chunked prefill, fused multi-step decode, TP/SP —
+the JAX package's own (copied verbatim). Ported knobs: weight int8
+quantization (``quantize``, ``quantize_experts``), int8 KV pages in device
+memory (``kv_quant_hbm="int8"``: int8 page pools with per-page f32 scale
+pools ``k_scales``/``v_scales``) and chunked prefill
+(``SchedulerConfig.chunked_prefill_tokens``: a step then prefills up to
+that many prompt tokens and decodes the running lanes in the same
+iteration). The other knob-gated features of the JAX engine — host/remote
+tiers, transfer, speculative decoding, fused multi-step decode, TP/SP —
 are not ported yet, and their config fields do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
@@ -25,6 +29,7 @@ which runs the kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -84,6 +89,10 @@ class EngineConfig:
     #: also quantize MoE expert stacks (they then run through the int8
     #: grouped-matmul kernel)
     quantize_experts: bool = False
+    #: KV pool storage in device memory: None (the model dtype) or "int8"
+    #: (codes plus one f32 scale per page per (layer, kv head): half the
+    #: bytes of a bf16 page). "float8_e4m3" is declared but not implemented.
+    kv_quant_hbm: Optional[str] = None
     seed: int = 0
 
 
@@ -107,19 +116,32 @@ class Engine:
         self.page_size = ps
         if config.block_manager.host_pages:
             raise ValueError("the host-DRAM tier is not ported: host_pages must be 0")
-        if config.scheduler.chunked_prefill_tokens is not None:
-            raise ValueError("chunked prefill is not ported: chunked_prefill_tokens must be None")
+        cpt = config.scheduler.chunked_prefill_tokens
+        if cpt is not None and cpt < 1:
+            raise ValueError("chunked_prefill_tokens must be >= 1 (None disables chunking)")
         self.max_pages_per_seq = -(-config.max_model_len // ps)
 
         self.block_manager = BlockManager(config.block_manager, on_events=on_events)
         sched_cfg = dataclasses.replace(
             config.scheduler,
             max_running=min(config.scheduler.max_running, config.decode_batch_size),
+            # Non-final chunks end page-aligned (the next chunk's paged
+            # context is whole pages) and land on the prefill buckets.
+            chunk_align=math.lcm(config.prefill_bucket, ps),
         )
         self.scheduler = Scheduler(self.block_manager, sched_cfg)
 
         if config.quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize mode {config.quantize!r}")
+        if config.kv_quant_hbm is not None:
+            if config.kv_quant_hbm not in quant.KV_QUANT_HBM_MODES:
+                raise ValueError(f"unknown kv_quant_hbm mode {config.kv_quant_hbm!r}")
+            if config.kv_quant_hbm == "float8_e4m3":
+                raise NotImplementedError(
+                    "kv_quant_hbm='float8_e4m3' is the declared follow-on "
+                    "storage mode; the paged-attention kernel has no fp8 "
+                    "dequant path yet — use 'int8'"
+                )
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = llama.init_params(
@@ -145,11 +167,22 @@ class Engine:
         self.params = params
         # Updated in place by every prefill / decode dispatch.
         self.k_pages, self.v_pages = llama.init_kv_pages(
-            cfg, config.block_manager.total_pages, ps, self.device
+            cfg, config.block_manager.total_pages, ps, self.device,
+            kv_quant_hbm=config.kv_quant_hbm,
         )
+        # Scale pools of the int8 pages (None when the knob is off).
+        self.k_scales: Optional[torch.Tensor] = None
+        self.v_scales: Optional[torch.Tensor] = None
+        if config.kv_quant_hbm == "int8":
+            self.k_scales, self.v_scales = llama.init_kv_scales(
+                cfg, config.block_manager.total_pages, self.device
+            )
         #: prefill observability: tokens actually pushed through prefill
         #: dispatches (prefix-cache hits reduce it) and dispatch count.
         self.prefill_stats = {"tokens_computed": 0, "dispatches": 0}
+        #: decode dispatches (a mixed step makes one prefill and one decode
+        #: dispatch, so steps do not count them)
+        self.decode_stats = {"dispatches": 0}
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.seed ^ 0x5EED
         )
@@ -270,8 +303,9 @@ class Engine:
         return self.scheduler.has_ready_work
 
     def step(self) -> list[Sequence]:
-        """One engine iteration — a prefill batch or a decode step. Returns
-        sequences finished this step."""
+        """One engine iteration — a prefill batch or a decode step, or with
+        chunked prefill a mixed step (prefill chunks, then the running
+        lanes' decode). Returns sequences finished this step."""
         shed: list[Sequence] = []
         if self._deadlines_used:
             # Deadline shedding BEFORE scheduling: an expired waiting seq
@@ -284,8 +318,11 @@ class Engine:
                 self.finished.append(seq)
         out = self.scheduler.schedule()
         if out.prefill:
-            self._run_prefill(out.prefill)
-        elif out.decode:
+            self._run_prefill(out.prefill, out.chunks)
+        if out.decode:
+            # Mixed step: the lanes were snapshotted at schedule time — a
+            # final chunk published above joins next step, and lanes its
+            # page growth preempted are dropped by _run_decode's filters.
             self._run_decode(out.decode)
 
         newly_finished = list(shed)
@@ -324,11 +361,16 @@ class Engine:
             return True
         return seq.num_tokens >= self.config.max_model_len
 
-    def _run_prefill(self, seqs: list[Sequence]) -> None:
-        """Prefill one batch: each sequence's whole fresh suffix, attending
-        over the paged context already resident (its prefix-cache hit)."""
+    def _run_prefill(self, seqs: list[Sequence], chunks: Optional[list[int]] = None) -> None:
+        """Prefill one batch. ``chunks[i]`` = prompt tokens to process for
+        ``seqs[i]`` this step (chunked prefill); None = each sequence's
+        whole fresh suffix. Every row attends over the paged context
+        already resident — its prefix-cache hit, plus the pages its earlier
+        chunks wrote. Only a sequence's final chunk samples a first token
+        and publishes it to the decode lanes."""
         ps = self.page_size
-        chunks = [s.prompt_remaining for s in seqs]
+        if chunks is None:
+            chunks = [s.prompt_remaining for s in seqs]
         # Bucketed shapes: batch padded to the configured prefill width,
         # chunk length and context pages bucketed.
         chunk = _round_up(max(chunks), self.config.prefill_bucket)
@@ -360,7 +402,8 @@ class Engine:
             ctx_bt[i, :n_ctx_pages] = seq.block_table[:n_ctx_pages]
             ctx_lens[i] = start
 
-        logits, self.k_pages, self.v_pages = llama.prefill(
+        # The pools (and scale pools) are written in place.
+        logits = llama.prefill(
             self.params,
             self.model_cfg,
             self._to_device(tokens),
@@ -372,26 +415,33 @@ class Engine:
             self._to_device(slot_ids),
             self._to_device(ctx_bt),
             self._to_device(ctx_lens),
-        )
+            k_scales=self.k_scales,
+            v_scales=self.v_scales,
+        )[0]
         first_tokens = self._sample(logits, seqs)  # syncs the dispatch
         self.prefill_stats["tokens_computed"] += int(valid.sum())
         self.prefill_stats["dispatches"] += 1
         now = time.monotonic()
+        finals = [
+            seq for seq, n in zip(seqs, chunks)
+            if seq.num_prefilled + n >= len(seq.prompt_tokens)
+        ]
         # Admit to running BEFORE appending slots: batchmates must be
         # preemption candidates if page growth exhausts the pool here.
-        self.scheduler.on_prefill_done(seqs)
+        self.scheduler.on_prefill_done(finals)
         for (seq, n), tok in zip(zip(seqs, chunks), first_tokens):
             if not seq.block_table:
                 continue  # preempted by an earlier seq in this very batch
             seq.num_prefilled += n
             seq.num_computed = seq.num_prefilled
-            # The last-position logits are the first-token logits of the
-            # whole prompt — sample and publish.
-            seq.output_tokens.append(int(tok))
-            seq.num_generated += 1
-            if seq.first_token_time is None:
-                seq.first_token_time = now
-            self._append_slot_or_preempt(seq)
+            if seq.prompt_remaining == 0:
+                # Final chunk: the last-position logits are the first-token
+                # logits of the whole prompt — sample and publish.
+                seq.output_tokens.append(int(tok))
+                seq.num_generated += 1
+                if seq.first_token_time is None:
+                    seq.first_token_time = now
+                self._append_slot_or_preempt(seq)
             self.block_manager.register_full_pages(seq)
 
     def _decode_table_width(self, seqs: list[Sequence]) -> int:
@@ -437,7 +487,7 @@ class Engine:
             positions[i] = seq.num_tokens - 1
             seq_lens[i] = seq.num_tokens
 
-        toks, self.k_pages, self.v_pages = llama.decode_steps(
+        toks = llama.decode_steps(
             self.params,
             self.model_cfg,
             self._to_device(tokens),
@@ -452,7 +502,10 @@ class Engine:
             self._generator,
             page_size=self.page_size,
             num_steps=1,
-        )
+            k_scales=self.k_scales,
+            v_scales=self.v_scales,
+        )[0]
+        self.decode_stats["dispatches"] += 1
         self._commit_burst({"toks": toks, "active": active, "k": 1})
 
     def _commit_burst(self, burst: dict) -> None:

@@ -86,6 +86,11 @@ class PodServerConfig:
         )
         # Weight quantization ("int8" halves weight bytes; models/quant.py).
         eng.quantize = os.environ.get("QUANTIZE") or None
+        # int8 KV pages in device memory (twice the pages per byte).
+        eng.kv_quant_hbm = os.environ.get("KV_QUANT_HBM") or None
+        # Chunked prefill: a per-step prompt-token budget; 0 or unset = off.
+        cpt = int(os.environ.get("CHUNKED_PREFILL_TOKENS", 0))
+        eng.scheduler.chunked_prefill_tokens = cpt if cpt > 0 else None
         return cfg
 
 

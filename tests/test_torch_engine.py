@@ -2,13 +2,17 @@
 on the same parameters, driven through the scenarios of
 ``tests/test_engine.py`` (basics, prefix caching, event emission,
 preemption), on TINY_LLAMA and, as further cases of the same
-parametrisation, on TINY_MOE, TINY_QWEN3_MOE and a TINY_QWEN3_MOE engine
+parametrisation, on TINY_MOE, TINY_QWEN3_MOE, a TINY_QWEN3_MOE engine
 with int8 weights and int8 experts (``quantize="int8",
 quantize_experts=True``, applied by each engine to the same full-precision
-parameters). In every scenario three things must be equal: greedy outputs
-(and what the engine reports about each request), ``prefill_stats
-["tokens_computed"]``, and the emitted event lists compared as the msgpack
-bytes of ``EventBatch``.
+parameters) and a TINY_LLAMA engine on int8 KV pages
+(``kv_quant_hbm="int8"``). In every scenario three things must be equal:
+greedy outputs (and what the engine reports about each request),
+``prefill_stats["tokens_computed"]``, and the emitted event lists compared
+as the msgpack bytes of ``EventBatch``. On int8 pages the final pools must
+hold the same codes, and scales within rtol 1e-6 (the two frameworks'
+float32 matmuls write K/V that differ in their last bits; see
+``test_torch_kv_quant_hbm.py``).
 """
 
 import functools
@@ -43,12 +47,13 @@ from llm_d_kv_cache_manager_tpu_torch.server import (
 
 PS = 4
 MODEL = "tiny-llama"
-#: engine model -> (preset name in both packages, quantize mode)
+#: engine model -> (preset name in both packages, quantize mode, KV pool mode)
 MODELS = {
-    "tiny-llama": ("TINY_LLAMA", None),
-    "tiny-moe": ("TINY_MOE", None),
-    "tiny-qwen3-moe": ("TINY_QWEN3_MOE", None),
-    "tiny-qwen3-moe-int8": ("TINY_QWEN3_MOE", "int8"),
+    "tiny-llama": ("TINY_LLAMA", None, None),
+    "tiny-moe": ("TINY_MOE", None, None),
+    "tiny-qwen3-moe": ("TINY_QWEN3_MOE", None, None),
+    "tiny-qwen3-moe-int8": ("TINY_QWEN3_MOE", "int8", None),
+    "tiny-llama-kvq": ("TINY_LLAMA", None, "int8"),
 }
 
 
@@ -83,8 +88,9 @@ class _Side:
                  model="tiny-llama"):
         self.events = []
         sink = lambda evs: self.events.append(list(evs))  # noqa: E731
-        preset, quantize = MODELS[model]
-        knobs = dict(quantize=quantize, quantize_experts=quantize is not None)
+        preset, quantize, kv_quant_hbm = MODELS[model]
+        knobs = dict(quantize=quantize, quantize_experts=quantize is not None,
+                     kv_quant_hbm=kv_quant_hbm)
         if torch_side:
             self.SP = TSP
             self.batch_cls = TEventBatch
@@ -106,6 +112,25 @@ class _Side:
 
     def event_bytes(self):
         return [self.batch_cls(ts=0.0, events=evs).to_payload() for evs in self.events]
+
+    def pools(self):
+        """(k_pages, v_pages, k_scales, v_scales) as numpy; no scales when
+        the pool is not int8."""
+        eng = self.eng
+        arrays = [eng.k_pages, eng.v_pages, eng.k_scales, eng.v_scales]
+        return [a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+                for a in arrays if a is not None]
+
+
+def assert_pools_match(tside, jside):
+    """Equal codes (or pages) and, for int8 pools, scales within rtol 1e-6."""
+    tp, jp = tside.pools(), jside.pools()
+    assert len(tp) == len(jp)
+    if len(tp) == 4:
+        for t, j in zip(tp[:2], jp[:2]):
+            np.testing.assert_array_equal(t, j)
+        for t, j in zip(tp[2:], jp[2:]):
+            np.testing.assert_allclose(t, j, rtol=1e-6, atol=0)
 
 
 def _observe(seq):
@@ -291,6 +316,8 @@ def test_engine_parity(model, name):
     assert tside.eng.prefill_stats["tokens_computed"] == jside.eng.prefill_stats["tokens_computed"]
     assert tside.eng.block_manager.num_free == jside.eng.block_manager.num_free
     assert tside.event_bytes() == jside.event_bytes()
+    if MODELS[model][2] is not None:
+        assert_pools_match(tside, jside)
 
 
 def test_events_drive_jax_indexer_to_score_torch_pod(params):

@@ -63,8 +63,12 @@ def test_engine_rejects_unported_knobs():
 
     with pytest.raises(ValueError, match="host"):
         Engine(EngineConfig(model=TINY_LLAMA, block_manager=BlockManagerConfig(host_pages=4)), device="cpu")
-    with pytest.raises(ValueError, match="chunked"):
-        Engine(EngineConfig(model=TINY_LLAMA, scheduler=SchedulerConfig(chunked_prefill_tokens=16)), device="cpu")
+    # Chunked prefill is ported: a budget is taken, a budget below 1 is not.
+    eng = Engine(EngineConfig(model=TINY_LLAMA, scheduler=SchedulerConfig(chunked_prefill_tokens=16)),
+                 device="cpu")
+    assert eng.scheduler.config.chunk_align == 64
+    with pytest.raises(ValueError, match="chunked_prefill_tokens must be >= 1"):
+        Engine(EngineConfig(model=TINY_LLAMA, scheduler=SchedulerConfig(chunked_prefill_tokens=0)), device="cpu")
 
 
 def _decode_args(device):
@@ -102,6 +106,27 @@ def test_cpu_call_uses_plain_version_and_never_counts(wrapper, make_args, kw):
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(*make_args("meta"), **kw)
     assert wrapper.launches == 0
+
+
+def test_int8_pages_cpu_call_uses_plain_version_and_never_counts():
+    """``paged_attention`` over int8 pages with scales: the plain version on
+    the CPU, a raise off CUDA, and K1q's own wrapper refuses CPU tensors."""
+    def args(device):
+        q, kp, _, bt, sl, fk, fv = _decode_args(device)
+        codes = (kp * 40).round().clamp(-127, 127).to(torch.int8)
+        scales = torch.full(kp.shape[:2] + kp.shape[3:4], 0.02, device=device)
+        return (q, codes, codes.clone(), bt, sl, fk, fv), dict(k_scale=scales, v_scale=scales.clone(), layer=1)
+
+    a, kw = args("cpu")
+    out = ops.paged_attention(*a, **kw)
+    assert torch.isfinite(out).all() and out[1].abs().max() == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        a, kw = args("meta")
+        ops.paged_attention(*a, **kw)
+    a, kw = args("cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.paged_decode_int8(*a[:3], kw["k_scale"], kw["v_scale"], *a[3:], scale=0.125, layer=1)
+    assert ops.paged_decode_int8.launches == 0 and ops.paged_attention.launches == 0
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["grouped_matmul_bf16", "grouped_matmul_int8"])
