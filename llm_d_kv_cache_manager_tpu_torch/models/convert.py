@@ -66,7 +66,8 @@ def kv_pools_from_jax(
     v_pages: Any,
     k_scales: Optional[Any] = None,
     v_scales: Optional[Any] = None,
-    device="cpu",
+    *,
+    device,
 ) -> tuple[torch.Tensor, ...]:
     """A JAX engine's page pools ``[L, P, ps, n_kv, hd]`` (numpy: bf16,
     f32 or int8 codes) as tensors on ``device``: ``(k_pages, v_pages)``, or

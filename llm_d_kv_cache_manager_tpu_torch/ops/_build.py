@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/kernels/`` at the repository root, then loaded with ``ctypes`` —
 no PyTorch headers, so a build takes seconds. The library name carries a
-digest of the source and the flags, so an edited source rebuilds and a
-stale library is never loaded. Nothing here runs at import time: the
+digest of the source, the ``csrc`` headers it includes and the flags, so
+an edited source or header rebuilds what includes it and a stale library
+is never loaded. Nothing here runs at import time: the
 first CUDA launch of a kernel builds it (``chip_smoke.py`` builds all of
 them up front, one ``nvcc`` process per source, concurrently).
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +50,23 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and the ``csrc`` headers it includes with ``#include "..."``,
+    transitively, each with its bytes."""
+    if path not in seen:
+        seen[path] = text = path.read_bytes()
+        for inc in _INCLUDE.findall(text):
+            _sources(CSRC / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    files = _sources(CSRC / f"{name}.cu", {})
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(files[p] for p in sorted(files)) + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -363,14 +363,14 @@ def test_env_knobs_reach_the_engine_config(monkeypatch):
 def test_kv_pools_from_jax_round_trip():
     rng = np.random.default_rng(30)
     codes, scales = _quantized_pool(rng, 2, 6, 2, 8)
-    out = t_convert.kv_pools_from_jax(codes, codes + 1, scales, scales * 2)
+    out = t_convert.kv_pools_from_jax(codes, codes + 1, scales, scales * 2, device="cpu")
     for t, a in zip(out, (codes, codes + 1, scales, scales * 2)):
         assert t.dtype == {np.int8: torch.int8, np.float32: torch.float32}[a.dtype.type]
         np.testing.assert_array_equal(t.numpy(), a)
     jk, jv = jl.init_kv_pages(jl.TINY_LLAMA, 4, PS)
-    k, v = t_convert.kv_pools_from_jax(np.asarray(jk), np.asarray(jv))
+    k, v = t_convert.kv_pools_from_jax(np.asarray(jk), np.asarray(jv), device="cpu")
     assert k.dtype == torch.float32 and k.shape == tuple(jk.shape)
     with pytest.raises(ValueError, match="together"):
-        t_convert.kv_pools_from_jax(codes, codes, scales)
+        t_convert.kv_pools_from_jax(codes, codes, scales, device="cpu")
     with pytest.raises(ValueError, match="int8"):
-        t_convert.kv_pools_from_jax(codes.astype(np.float32), codes.astype(np.float32), scales, scales)
+        t_convert.kv_pools_from_jax(codes.astype(np.float32), codes.astype(np.float32), scales, scales, device="cpu")
