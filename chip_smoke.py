@@ -4,8 +4,8 @@ give it (Llama-3.1-8B attention, over bf16 and over int8 KV pages, decode
 at 8 lanes and at one 4096-token lane, prefill in three call forms;
 decode also at a GQA group of 16;
 Qwen3-30B-A3B attention at GQA group 8 and its grouped expert matmuls,
-bf16 and int8) and times the attention kernels with the L2 cache flushed
-before each call, runs one routed MoE layer under
+bf16 and int8, in five group-size forms) and times the kernels with the L2
+cache flushed before each call, runs one routed MoE layer under
 ``torch.cuda.set_sync_debug_mode("error")``, then serves four workloads
 through the port's ``Engine`` and ``PodServer`` — Llama-3.1-8B,
 Qwen3-30B-A3B with bf16 experts, Qwen3-30B-A3B with int8 weights and int8
@@ -466,7 +466,9 @@ def check_flash_prefill(ops, dev, gen, n_kv=8):
 #: up products and of the down product.
 MOE_E, MOE_TOPK = 128, 8
 GMM_WIDTHS = {"gate_up": (2048, 768), "down": (768, 2048)}
-GMM_FORMS = ("prefill", "decode", "edge")
+#: call forms held against the plain version; the first three also timed
+GMM_FORMS = ("prefill", "decode", "edge", "one_expert", "ragged")
+GMM_TIMED = ("prefill", "decode", "edge")
 
 
 def gmm_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
@@ -474,12 +476,23 @@ def gmm_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
     decode: the experts of top-8 over random router logits for 8 x 1024 /
     8 tokens (65,536 / 64 rows). edge: empty first and last groups, one
     group holding most rows, and 11 rows past the last group, 5001 rows in
-    all — no multiple of any tile."""
+    all — no multiple of any tile. one_expert: all 65,536 rows in one
+    group, the other 127 empty (the persistent walk over many tiles of one
+    group). ragged: sizes 1..700 from the seeded generator and 37 rows past
+    the last group (tiles that straddle the next group, and the zero
+    tail)."""
     if form == "edge":
         sizes = torch.randint(0, 16, (MOE_E,), generator=gen, device=dev).tolist()
         sizes[0] = sizes[-1] = sizes[MOE_E // 2] = 0
         sizes[MOE_E // 2] = 4990 - sum(sizes)
         return sizes, 5001
+    if form == "one_expert":
+        sizes = [0] * MOE_E
+        sizes[MOE_E // 3] = 8 * 1024 * MOE_TOPK
+        return sizes, sizes[MOE_E // 3]
+    if form == "ragged":
+        sizes = torch.randint(1, 701, (MOE_E,), generator=gen, device=dev).tolist()
+        return sizes, sum(sizes) + 37
     tokens = 8 * 1024 if form == "prefill" else 8
     logits = torch.randn((tokens, MOE_E), generator=gen, device=dev)
     topi = logits.topk(MOE_TOPK, dim=-1).indices
@@ -498,16 +511,33 @@ def grouped_mm_library_ms(lhs, rhs, gs):
     try:
         fn(lhs, rhs, offs=offs)
         torch.cuda.synchronize()
-        return cuda_time_ms(lambda: fn(lhs, rhs, offs=offs)), None
+        return cold_time_ms(lambda: fn(lhs, rhs, offs=offs)), None
     except Exception as e:  # a yardstick only: record why it is missing
         return None, f"torch._grouped_mm refused: {type(e).__name__}: {str(e)[:160]}"
 
 
+def host_enqueue_us(fn, calls: int = 50) -> float:
+    """Median host time of one call while the card is held busy by a long
+    spin queued before them, so that only enqueueing is timed."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~60 ms of GPU cycles ahead of the calls
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
     """K4 (bf16 experts) and K5 (int8 experts) at Qwen3-30B-A3B widths,
-    gate/up and down, in the prefill, decode and edge forms: each held
-    element by element against the float32 plain version, and timed with
-    the plain version and, for K4, the library call beside it."""
+    gate/up and down, in every ``GMM_FORMS`` form: each held element by
+    element against the float32 plain version, and the ``GMM_TIMED`` forms
+    timed with the L2 flushed before each call, beside the plain version
+    and, for K4, the library call; each with the plan the wrapper launched.
+    At the decode form the host time of one call is read too."""
     bf = torch.bfloat16
     results = {"grouped_matmul_bf16": {}, "grouped_matmul_int8": {}}
     for width, (d, f) in GMM_WIDTHS.items():
@@ -538,8 +568,16 @@ def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
                 if (out[in_groups:] != 0).any():
                     fail(f"{name}: rows past the last group are not zero ({form}/{width})")
                 case = held(out, ref, ref_abs, abs_coef=d * F32_ULP)
+                plan = getattr(ops, name).last_plan
+                if not (call() == out).all():
+                    fail(f"{name}: two calls on the same inputs differ ({form}/{width})")
                 del ref, ref_abs, out
-                ms = cuda_time_ms(call)
+                entry = dict(case, rows=rows, d=d, f=f, nonempty_groups=nonempty,
+                             max_group=max(sizes), plan=plan)
+                results[name][f"{form}/{width}"] = entry
+                if form not in GMM_TIMED:
+                    continue
+                ms = cold_time_ms(call)
                 plain_ms = cuda_time_ms(
                     lambda: ops.grouped_matmul_plain(lhs, rhs, gs, row_group_ids=rgi), iters=3, warmup=1
                 )
@@ -555,11 +593,10 @@ def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
                     + rows * d * 2 + rows * f * 2 + MOE_E * 4  # lhs in, out, group sizes
                 )
                 b_ms, b_by = bound_ms(n_bytes, 2 * in_groups * d * f)
-                results[name][f"{form}/{width}"] = dict(
-                    case, rows=rows, d=d, f=f, nonempty_groups=nonempty,
-                    max_group=max(sizes), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=library_ms, library_note=library_note,
-                )
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, library_note=library_note)
+                if form == "decode":
+                    entry["host_us"] = host_enqueue_us(call)
             del lhs
         del w, stacks
         free_cuda()
@@ -573,6 +610,7 @@ def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
             "name": name,
             "route": "cuda",
             "source": "llm_d_kv_cache_manager_tpu_torch/csrc/grouped_matmul.cu",
+            "timing": "L2 flushed before each call",
             "replaces": ("llm_d_kv_cache_manager_tpu/ops/gmm.py:115" if name.endswith("bf16")
                          else "llm_d_kv_cache_manager_tpu/ops/gmm.py:149"),
             "max_abs_err": max(c["max_abs_err"] for c in forms.values()),
@@ -1106,13 +1144,13 @@ def attention_checks(ops, models, llama, dev, gen) -> list[dict]:
 
 def sass_tensor_core_counts(_build) -> dict | None:
     """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) per kernel
-    function in the built attention libraries, from ``cuobjdump -sass``;
-    None where the toolkit has no cuobjdump."""
+    function in the built libraries, from ``cuobjdump -sass``; None where
+    the toolkit has no cuobjdump."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     out = {}
-    for name in ("flash_prefill", "paged_decode"):
+    for name in _build.KERNEL_SOURCES:
         text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
         funcs, cur = {}, None
@@ -1163,8 +1201,12 @@ def main() -> None:
     sass = sass_tensor_core_counts(_build)
     emit({"phase": "build", "seconds": seconds, "total_s": time.perf_counter() - t0,
           "ptxas": regs, "sass_tensor_core_instructions": sass})
-    if sass is not None and not any(n for f in sass["flash_prefill"].values() for n in f.values()):
-        fail("cuobjdump -sass shows no HMMA/HGMMA in the flash_prefill library")
+    if sass is not None:
+        if not any(n for f in sass["flash_prefill"].values() for n in f.values()):
+            fail("cuobjdump -sass shows no HMMA/HGMMA in the flash_prefill library")
+        gmm_prefill = [f for name, f in sass["grouped_matmul"].items() if "prefill_kernel" in name]
+        if len(gmm_prefill) != 2 or not all(f["HGMMA"] for f in gmm_prefill):
+            fail(f"cuobjdump -sass shows no HGMMA in a grouped-matmul prefill kernel: {sass['grouped_matmul']}")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -1,8 +1,8 @@
-// Warp-level building blocks shared by the attention kernels
-// (flash_prefill.cu, paged_decode.cu): asynchronous global -> shared copies
+// Warp-level building blocks shared by the kernels (flash_prefill.cu,
+// paged_decode.cu, grouped_matmul.cu): asynchronous global -> shared copies
 // (cp.async), ldmatrix, and the bf16 m16n8k16 tensor-core product with
 // float32 accumulation. ops/_build.py hashes this header into the digest of
-// every library, so an edit here rebuilds them.
+// each library whose source includes it, so an edit here rebuilds those.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -16,6 +16,7 @@ from .gmm import (
     grouped_matmul_bf16,
     grouped_matmul_int8,
     grouped_matmul_plain,
+    plan_grouped_matmul,
 )
 
 __all__ = [
@@ -36,4 +37,5 @@ __all__ = [
     "grouped_matmul_bf16",
     "grouped_matmul_int8",
     "grouped_matmul_plain",
+    "plan_grouped_matmul",
 ]

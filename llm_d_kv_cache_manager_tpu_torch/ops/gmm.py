@@ -11,11 +11,18 @@ expert owning row ``r``; rows past the last group are zero.
 ``grouped_matmul_plain``; CUDA tensors launch ``grouped_matmul_bf16`` (a
 bf16 expert stack) or ``grouped_matmul_int8`` (a ``QuantizedTensor``), or
 the call raises. There is no fallback from one to the other.
+
+Each launch takes one of the kernels' two paths, chosen on the host from
+integers alone by ``plan_grouped_matmul``: the persistent ``wgmma``/TMA
+GEMM for prefill-shaped calls, or the weight-streaming ``mma.sync`` GEMV
+for decode-shaped ones. The wrapper records the plan it launched on
+``last_plan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import torch
@@ -25,6 +32,53 @@ from . import _build
 
 #: the kernels' shared-memory group table (``kMaxGroups``)
 _MAX_GROUPS = 1024
+#: prefill path (``csrc/grouped_matmul.cu``): output tile, k tile, threads
+#: (two consumer warpgroups + one producer)
+_TM, _TN, _TK, _THREADS = 128, 256, 64, 384
+
+
+def _prefill_smem(quantized: bool) -> tuple[int, int]:
+    """Ring stages and dynamic shared memory of the prefill kernel: 1 KiB of
+    alignment slack, the ring (a stage: the lhs tile, the bf16 B tile and,
+    for int8, the codes it is widened from), two mbarriers a stage, each
+    consumer warp's epilogue buffer (16 rows of 144 bytes), the group
+    tables."""
+    stages = 3 if quantized else 4
+    stage = _TM * _TK * 2 + _TK * _TN * 2 + (_TK * _TN if quantized else 0)
+    return stages, (1024 + stages * stage + 2 * stages * 8 + 8 * 16 * 144
+                    + 2 * (_MAX_GROUPS + 2) * 4)
+
+
+#: decode path: 8 warps a block, 16 bytes of f a thread, 8 rows a pass
+_DEC_THREADS, _DEC_ROWS = 256, 8
+
+
+def plan_grouped_matmul(rows: int, n_groups: int, d: int, f: int, quantized: bool,
+                        sm_count: int) -> dict:
+    """The launch of one grouped matmul, from integers alone (never a tensor
+    value, so the launch never synchronises with the host).
+
+    ``rows < 16 * n_groups`` (under 16 rows an expert on average) takes the
+    decode path: one block per (64 bf16 / 128 int8 columns of f, group),
+    plus one row of blocks for the zero tail. Otherwise the prefill path:
+    persistent blocks, one an SM, never more than the group-aligned tiles
+    there can be (``ceil(rows / 128) + n_groups + 1`` row tiles, each
+    non-empty group adding at most one partial tile and the tail one, times
+    ``ceil(f / 256)``). Raises for widths TMA cannot tile: ``d * 2`` and
+    ``f`` times the element size must be multiples of 16 bytes."""
+    elem = 1 if quantized else 2
+    if d < 1 or f < 1 or (d * 2) % 16 or (f * elem) % 16:
+        raise ValueError(f"grouped_matmul: d * 2 = {d * 2} and f * {elem} = {f * elem} "
+                         "must be positive multiples of 16 bytes")
+    if rows < 16 * n_groups:
+        width = 16 // elem * 8
+        return {"path": "decode", "tile": (_DEC_ROWS, width, 16), "stages": 0,
+                "grid": (-(-f // width), n_groups + 1, 1), "threads": _DEC_THREADS,
+                "smem": 8 * _DEC_ROWS * width * 4}
+    upper = (-(-rows // _TM) + n_groups + 1) * -(-f // _TN)
+    stages, smem = _prefill_smem(quantized)
+    return {"path": "prefill", "tile": (_TM, _TN, _TK), "stages": stages,
+            "grid": (max(1, min(upper, sm_count)), 1, 1), "threads": _THREADS, "smem": smem}
 
 
 def grouped_matmul_plain(
@@ -54,12 +108,30 @@ def grouped_matmul_plain(
     return out.to(lhs.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(quantized: bool):
+    """The C entry point of K5 (``quantized``) or K4, typed once."""
+    lib = _build.load("grouped_matmul")
+    fn = lib.grouped_matmul_int8 if quantized else lib.grouped_matmul_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * (5 if quantized else 4) + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    return fn
+
+
 def _check(cond: bool, name: str, msg: str) -> None:
     if not cond:
         raise ValueError(f"{name} (CUDA): {msg}")
 
 
-def _launch(name: str, lhs, b, scale, group_sizes) -> torch.Tensor:
+def _launch(name: str, lhs, b, scale, group_sizes) -> tuple[torch.Tensor, Optional[dict]]:
+    """Check the operands and launch K4 (``scale`` None) or K5 as
+    ``plan_grouped_matmul`` plans it; returns the output and the plan (None
+    when there are no rows and nothing is launched)."""
     dev = lhs.device
     _check(dev.type == "cuda", name, f"tensors must be on a CUDA device, got {dev}")
     _check(lhs.dim() == 2 and b.dim() == 3, name, "lhs must be [rows, d] and rhs [E, d, f]")
@@ -86,20 +158,17 @@ def _launch(name: str, lhs, b, scale, group_sizes) -> torch.Tensor:
         _check(t.data_ptr() % 16 == 0 or t.numel() == 0, name, "tensors must be 16-byte aligned")
     out = torch.empty((rows, f), dtype=torch.bfloat16, device=dev)
     if rows == 0:
-        return out
-    fn = getattr(_build.load("grouped_matmul"), name)
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if scale is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        err = fn(lhs.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-                 rows, d, f, n_groups, stream)
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        err = fn(lhs.data_ptr(), b.data_ptr(), scale.data_ptr(), group_sizes.data_ptr(),
-                 out.data_ptr(), rows, d, f, n_groups, stream)
+        return out, None
+    plan = plan_grouped_matmul(rows, n_groups, d, f, scale is not None, _sm_count(dev.index))
+    ptrs = (lhs.data_ptr(), b.data_ptr()) + ((scale.data_ptr(),) if scale is not None else ())
+    grid = plan["grid"]
+    err = _entry(scale is not None)(
+        *ptrs, group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups,
+        0 if plan["path"] == "prefill" else 1, grid[0], grid[1],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
     _build.check_launch(name, err)
-    return out
+    return out, plan
 
 
 def grouped_matmul_bf16(
@@ -108,8 +177,9 @@ def grouped_matmul_bf16(
     """K4 on the card: bf16 ``lhs [rows, d]`` by the bf16 expert stack
     ``rhs [E, d, f]`` over ``group_sizes`` (int32, on the device, never
     read by the host); returns bf16 ``[rows, f]``."""
-    out = _launch("grouped_matmul_bf16", lhs, rhs, None, group_sizes)
-    if lhs.shape[0]:
+    out, plan = _launch("grouped_matmul_bf16", lhs, rhs, None, group_sizes)
+    if plan is not None:
+        grouped_matmul_bf16.last_plan = plan
         grouped_matmul_bf16.launches += 1
     return out
 
@@ -120,8 +190,9 @@ def grouped_matmul_int8(
     """K5 on the card: bf16 ``lhs`` by the int8 codes ``q [E, d, f]``, f32
     accumulation, times ``scale [E, 1, f]`` of each row's group, rounded
     once to bf16."""
-    out = _launch("grouped_matmul_int8", lhs, q, scale, group_sizes)
-    if lhs.shape[0]:
+    out, plan = _launch("grouped_matmul_int8", lhs, q, scale, group_sizes)
+    if plan is not None:
+        grouped_matmul_int8.last_plan = plan
         grouped_matmul_int8.launches += 1
     return out
 
@@ -150,6 +221,9 @@ def grouped_matmul(
     return grouped_matmul_bf16(lhs, rhs, group_sizes)
 
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts);
+#: ``last_plan`` is the last launch's ``plan_grouped_matmul``
 grouped_matmul_bf16.launches = 0
 grouped_matmul_int8.launches = 0
+grouped_matmul_bf16.last_plan = None
+grouped_matmul_int8.last_plan = None

@@ -45,14 +45,15 @@ def _one_thread():
 
 def _problem(seed, E, d, f, sizes, dtype, extra_rows=0):
     """The JAX test's inputs (``tests/test_gmm.py::_problem``), as numpy,
-    handed to both sides; ``extra_rows`` rows lie past every group."""
+    handed to both sides; ``extra_rows`` rows lie past every group (fewer
+    rows than the sizes sum to when negative)."""
     rng = np.random.default_rng(seed)
     sizes = np.asarray(sizes)
     rows = int(sizes.sum()) + extra_rows
     lhs = rng.normal(size=(rows, d)).astype(np.float32)
     w = (rng.normal(size=(E, d, f)) * 0.1).astype(np.float32)
     rgi = np.repeat(np.arange(E), sizes).astype(np.int32)
-    rgi = np.concatenate([rgi, np.full(extra_rows, E - 1, np.int32)])
+    rgi = np.concatenate([rgi, np.full(max(extra_rows, 0), E - 1, np.int32)])[:rows]
     j = (jnp.asarray(lhs, JDT[dtype]), jnp.asarray(w, JDT[dtype]),
          jnp.asarray(sizes, jnp.int32), jnp.asarray(rgi))
     t = (torch.from_numpy(lhs).to(TDT[dtype]), torch.from_numpy(w).to(TDT[dtype]),
@@ -133,3 +134,98 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_never_count():
     with pytest.raises(ValueError, match="CUDA"):
         t_ops.grouped_matmul_int8(tl_, q.q, q.scale, tgs)
     assert t_ops.grouped_matmul_bf16.launches == 0 and t_ops.grouped_matmul_int8.launches == 0
+    assert t_ops.grouped_matmul_bf16.last_plan is None and t_ops.grouped_matmul_int8.last_plan is None
+
+
+#: group-size forms of the kernels' chip checks, at test size: (sizes, rows
+#: past the last group, negative where the sizes sum past the rows)
+EDGE_SIZES = {
+    # every row in one group, the other groups empty
+    "one_expert": ([0, 0, 0, 200, 0, 0, 0, 0], 0),
+    # ragged sizes summing under the rows: tiles straddle groups, zero tail
+    "ragged_under_rows": ([37, 1, 70, 5, 23, 2, 61, 9], 19),
+    # sizes summing past the rows: the last groups are cut at the rows
+    "over_rows": ([40, 0, 25, 60, 10, 30, 20, 15], -47),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(EDGE_SIZES))
+def test_group_size_forms_match_megablox_and_ragged_dot(case, dtype):
+    sizes, extra = EDGE_SIZES[case]
+    (jl_, jw, jgs, _), (tl_, tw, tgs, _) = _problem(7, 8, 256, 384, sizes, dtype, extra)
+    out = t_ops.grouped_matmul_plain(tl_, tw, tgs)
+    assert out.shape == (tl_.shape[0], 384)
+    # megablox leaves rows past the last group unwritten; ragged_dot zeroes them
+    in_groups = min(sum(sizes), tl_.shape[0])
+    megablox = j_gmm(jl_, jw, jgs, interpret=True)
+    oracle = j_gmm(jl_, jw, jgs, use_kernel=False)
+    np.testing.assert_allclose(_np(out)[:in_groups], _np(megablox)[:in_groups], **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(oracle), **TOL[dtype])
+    assert (out[in_groups:] == 0).all()
+
+
+#: Qwen3-30B-A3B's expert products (128 experts, top-8): (rows, d, f) of
+#: the chip check's call forms
+QWEN3_FORMS = {
+    "prefill/gate_up": (65536, 2048, 768), "prefill/down": (65536, 768, 2048),
+    "decode/gate_up": (64, 2048, 768), "decode/down": (64, 768, 2048),
+    "edge/gate_up": (5001, 2048, 768), "edge/down": (5001, 768, 2048),
+}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("form", list(QWEN3_FORMS))
+def test_plan_takes_the_expected_path_at_qwen3_forms(form, quantized):
+    rows, d, f = QWEN3_FORMS[form]
+    plan = t_ops.plan_grouped_matmul(rows, 128, d, f, quantized, 132)
+    assert plan["path"] == form.split("/")[0].replace("edge", "prefill")
+    if plan["path"] == "decode":
+        width = plan["tile"][1]
+        assert width == (128 if quantized else 64)
+        assert plan["grid"] == (-(-f // width), 129, 1)
+    else:
+        assert plan["grid"] == (132, 1, 1) and plan["threads"] == 384
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("n_groups", [1, 8, 128, 1024])
+def test_plan_path_threshold_is_16_rows_a_group(n_groups, quantized):
+    below = t_ops.plan_grouped_matmul(16 * n_groups - 1, n_groups, 64, 256, quantized, 132)
+    at = t_ops.plan_grouped_matmul(16 * n_groups, n_groups, 64, 256, quantized, 132)
+    assert (below["path"], at["path"]) == ("decode", "prefill")
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("rows,n_groups,f,sm_count", [
+    (16, 1, 256, 132), (300, 2, 256, 132), (2048, 128, 768, 132),
+    (65536, 128, 2048, 132), (65536, 8, 8192, 114), (100000, 1024, 16, 1),
+])
+def test_plan_grid_is_persistent_and_smem_fits(rows, n_groups, f, sm_count, quantized):
+    """A prefill launch never asks for more blocks than SMs, nor more than
+    the group-aligned tiles there can be; every plan's shared memory fits
+    the H100's 227 KiB a block (the decode path's in 48 KiB of static
+    shared memory)."""
+    plan = t_ops.plan_grouped_matmul(rows, n_groups, 64, f, quantized, sm_count)
+    tm, tn, _ = plan["tile"]
+    if plan["path"] == "prefill":
+        upper = (-(-rows // tm) + n_groups + 1) * -(-f // tn)
+        assert 1 <= plan["grid"][0] <= min(sm_count, upper)
+        assert plan["smem"] <= 232448
+    else:
+        assert plan["smem"] <= 48 * 1024
+        assert plan["grid"][1] == n_groups + 1 and plan["grid"][0] * tn >= f
+
+
+@pytest.mark.parametrize("quantized,d,f,ok", [
+    (False, 8, 8, True), (False, 12, 8, False), (False, 8, 12, False),
+    (True, 8, 16, True), (True, 8, 8, False), (True, 4, 16, False),
+])
+def test_plan_refuses_widths_tma_cannot_tile(quantized, d, f, ok):
+    """TMA needs every row stride to be a multiple of 16 bytes: ``d * 2``
+    for lhs, ``f`` times the element size for the expert stack."""
+    if ok:
+        t_ops.plan_grouped_matmul(4096, 8, d, f, quantized, 132)
+    else:
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            t_ops.plan_grouped_matmul(4096, 8, d, f, quantized, 132)

@@ -164,12 +164,12 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
 
 def test_kernel_digest_covers_the_headers_a_source_includes():
     """A library's digest covers the ``csrc`` headers its source includes,
-    and no other: an edit to the attention kernels' shared header rebuilds
-    them and not the grouped matmul."""
+    and no other: an edit to the wgmma header rebuilds the grouped matmul
+    and not the attention kernels."""
     from llm_d_kv_cache_manager_tpu_torch.ops import _build
 
     def headers(name):
         return {p.name for p in _build._sources(_build.CSRC / f"{name}.cu", {}) if p.suffix == ".cuh"}
 
     assert headers("paged_decode") == headers("flash_prefill") == {"mma_sm90.cuh"}
-    assert headers("grouped_matmul") == set()
+    assert headers("grouped_matmul") == {"mma_sm90.cuh", "wgmma_sm90.cuh"}
