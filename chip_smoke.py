@@ -12,7 +12,13 @@ Qwen3-30B-A3B with bf16 experts, Qwen3-30B-A3B with int8 weights and int8
 experts, and Llama-3.1-8B on int8 KV pages with chunked prefill (where one
 decode step on int8 pages and one on bf16 pages also run under the sync
 debug mode), all at full width and depth with random weights from a seed —
-and checks what comes out.
+and checks what comes out. Every decode burst of the engine is one CUDA
+graph replay; the launch counts count the model steps the replays ran.
+For Llama-3.1-8B and the int8 Qwen3-30B-A3B, the ``decode_fast_path``
+phase then holds one graph replay against the same burst run eagerly (bit
+for bit), the engine with the decode fast-path knobs on against it with
+them off (equal greedy tokens), and profiles eager, graph k=1 and graph
+k=4 pipelined decode.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -680,39 +686,45 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 #: and ``chunked_prefill`` sets the per-step prefill token budget (mixed
 #: prefill/decode steps).
 PATHS = (
-    dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None),
+    dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
+         fast_path=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
-    dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8"),
+    dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
+         fast_path=True),
     dict(label="llama_3_8b_kvq", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
          kv_quant_hbm="int8", chunked_prefill=512, same_tokens_as="llama_3_8b"),
 )
 
 
-def counters(ops) -> dict:
-    """Each kernel's wrapper, which counts that kernel's launches."""
-    return {
-        "paged_decode": ops.paged_attention,
-        "paged_decode_int8": ops.paged_decode_int8,
-        "flash_prefill": ops.flash_prefill_paged,
-        "grouped_matmul_bf16": ops.grouped_matmul_bf16,
-        "grouped_matmul_int8": ops.grouped_matmul_int8,
-    }
+#: the kernel functions each counted wrapper (``ops.COUNTED``) launches once
+#: a call, as the profiler names them (a traced name holds one of the
+#: patterns); every K1 call, bf16 or int8 pages, also launches one
+#: ``combine_kernel``
+TRACED = {
+    "paged_decode": ("::split_decode_kernel<__nv_bfloat16",),
+    "paged_decode_int8": ("::split_decode_kernel<signed char",),
+    "flash_prefill": ("flash_prefill_kernel",),
+    "grouped_matmul_bf16": ("::decode_kernel<__nv_bfloat16", "::prefill_kernel<__nv_bfloat16"),
+    "grouped_matmul_int8": ("::decode_kernel<signed char", "::prefill_kernel<signed char"),
+}
 
 
 def expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches: int,
-                      decode_dispatches: int) -> dict:
-    """One attention launch per layer per dispatch (decode on the int8
-    kernel over int8 pages); for an MoE model three grouped matmuls (gate,
-    up, down) per layer per dispatch, on the int8 kernel when the experts
-    are quantized."""
+                      decode_steps: int) -> dict:
+    """One attention launch per layer per prefill dispatch and per decode
+    model step (decode on the int8 kernel over int8 pages); for an MoE model
+    three grouped matmuls (gate, up, down) per layer per dispatch or step,
+    on the int8 kernel when the experts are quantized. A decode burst of k
+    steps is one graph replay, which counts the launches its capture
+    recorded: k per layer."""
     n = cfg.n_layers
     decode = "paged_decode_int8" if kv_quant_hbm else "paged_decode"
     out = {"paged_decode": 0, "paged_decode_int8": 0, "flash_prefill": n * prefill_dispatches,
            "grouped_matmul_bf16": 0, "grouped_matmul_int8": 0}
-    out[decode] = n * decode_dispatches
+    out[decode] = n * decode_steps
     if cfg.n_experts:
         gmm = "grouped_matmul_int8" if quantize else "grouped_matmul_bf16"
-        out[gmm] = 3 * n * (prefill_dispatches + decode_dispatches)
+        out[gmm] = 3 * n * (prefill_dispatches + decode_steps)
     return out
 
 
@@ -907,7 +919,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
     # The first requests go to the engine directly; the repeats, which hit
     # the prefix cache, through the pod server's request API and its
     # engine-loop thread.
-    for wrapper in counters(ops).values():
+    for wrapper in ops.COUNTED.values():
         wrapper.launches = 0
     first = [eng.add_request(p, greedy()) for p in prompts]
     drive()
@@ -921,10 +933,13 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         repeats = [f.result(timeout=600) for f in futures]
     finally:
         pod.shutdown()
-    launches = {name: wrapper.launches for name, wrapper in counters(ops).items()}
+    launches = {name: wrapper.launches for name, wrapper in ops.COUNTED.items()}
     torch.cuda.synchronize()
     prefill_dispatches = eng.prefill_stats["dispatches"]
     decode_dispatches = eng.decode_stats["dispatches"]
+    # The model steps the replays ran, and the warm-up's eager steps before
+    # the first capture (real launches).
+    decode_steps = eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps
 
     # Checks on what came out.
     for seq in first + repeats:
@@ -948,7 +963,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         fail(f"{path['label']}: {prefill_dispatches} prefill and {decode_dispatches} decode dispatches")
     if path.get("chunked_prefill") and phase["mixed_steps"] == 0:
         fail(f"{path['label']}: chunked prefill made no mixed prefill/decode step")
-    expected = expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches, decode_dispatches)
+    expected = expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches, decode_steps)
     if launches != expected:
         fail(f"{path['label']}: kernel launches {launches} != expected {expected}")
     greedy_tokens[path["label"]] = [list(s.generated_tokens) for s in first + repeats]
@@ -966,7 +981,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
 
     logits = warm_vs_cold(models, pkg["llama"], eng.params, cfg, prompts[0], ps, dev, kv_quant_hbm)
 
-    profile = profile_decode(eng, prompts, greedy)
+    profile = profile_decode(eng, prompts, server, ops)
     emit({
         "phase": "engine",
         "model": path["label"],
@@ -984,6 +999,9 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         "new_tokens_each": new_tokens,
         "prefill_dispatches": prefill_dispatches,
         "decode_dispatches": decode_dispatches,
+        "decode_steps_with_warmup": decode_steps,
+        "decode_graphs": {"keys": eng.decode_graphs.keys,
+                          "pool_bytes": eng.decode_graphs.pool_bytes()},
         "tokens_computed_cold": cold_computed,
         "tokens_computed_repeats": warm_computed,
         "cached_prompt_tokens_repeats": [s.num_cached_prompt for s in repeats],
@@ -1003,6 +1021,11 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         **extra,
     })
     emit(dict(profile, model=path["label"]))
+    if path.get("fast_path"):
+        t0 = time.perf_counter()
+        fast = decode_fast_path(pkg, ops, eng, cfg, prompts, ps, dev)
+        emit(dict({"phase": "decode_fast_path", "model": path["label"], "card": card},
+                  **fast, seconds=time.perf_counter() - t0))
     return launches
 
 
@@ -1016,27 +1039,14 @@ def sync_free_decode_steps(models, ops, eng, cfg, prompts, ps, dev) -> dict:
     sync) on int8 beside bf16 pages, 30 pairs in alternating order: what
     int8 pages cost a decode step."""
     lanes, n = 8, 256 + 5
-    pages = lanes * (n // ps + 1) + 1
-    table = torch.arange(1, pages, dtype=torch.int32, device=dev).view(lanes, -1)
-    tokens = torch.tensor([p[:n] for p in prompts[:lanes]], dtype=torch.int32, device=dev)
-    pos = torch.arange(n - 1, dtype=torch.int32, device=dev)[None].expand(lanes, -1).contiguous()
-    last = torch.full((lanes,), n - 1, dtype=torch.int32, device=dev)
-    pools = {}
-    for mode in ("int8", None):
-        pool = models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=mode)
-        if mode:
-            pool += models.init_kv_scales(cfg, pages, dev)
-        models.prefill(eng.params, cfg, tokens[:, :-1], pos, torch.ones_like(pos, dtype=torch.bool),
-                       pool[0], pool[1], torch.gather(table, 1, pos // ps), pos % ps,
-                       torch.zeros((lanes, 0), dtype=torch.int32, device=dev),
-                       torch.zeros((lanes,), dtype=torch.int32, device=dev), *pool[2:])
-        pools[mode or "bf16"] = pool
+    pools = {mode or "bf16": scratch_lanes(models, eng.params, cfg, prompts, ps, dev, mode, n=n)
+             for mode in ("int8", None)}
 
     def step(mode):
-        pool = pools[mode]
-        scales = dict(k_scales=pool[2], v_scales=pool[3]) if mode == "int8" else {}
-        return models.decode_step(eng.params, cfg, tokens[:, -1].contiguous(), last, pool[0], pool[1],
-                                  table, last + 1, page_size=ps, **scales)[0]
+        pool, inp = pools[mode]
+        return models.decode_step(eng.params, cfg, inp["tokens"], inp["positions"], pool[0],
+                                  pool[1], inp["block_tables"], inp["seq_lens"], page_size=ps,
+                                  k_scales=pool[2], v_scales=pool[3])[0]
 
     launched = {}
     for mode, wrapper in (("int8", ops.paged_decode_int8), ("bf16", ops.paged_attention)):
@@ -1070,24 +1080,38 @@ def sync_free_decode_steps(models, ops, eng, cfg, prompts, ps, dev) -> dict:
             "pairs_int8_slower": sum(a > b for a, b in zip(wall["int8"], wall["bf16"]))}
 
 
-def profile_decode(eng, prompts, greedy) -> dict:
-    """Where a decode step's time goes: torch.profiler over a few steady
-    decode steps of 8 lanes (after the main path's counts were read)."""
+def profile_window(step, steps: int, model_steps: int, counted: dict) -> dict:
+    """Where the time of ``steps`` calls of ``step`` goes. ``model_steps``:
+    the model steps (tokens a lane) one call runs. Two windows of ``steps``
+    calls, each ended by a device sync: the first unprofiled, for the wall
+    time; the second under torch.profiler, for the kernels' own device time
+    (graph replays included) and its own wall time, which the profiler's
+    per-operation and per-graph-node tracing lengthens. The idle share is
+    the share of the unprofiled wall time the device ran no kernel;
+    ``device_idle_share_profiled`` reads it against the profiled wall time
+    (how earlier versions of this script read it).
+
+    The launch counts of ``counted`` (``ops.COUNTED``) over the profiled
+    window must equal the launches the trace shows (``TRACED``): a graph
+    replay adds the counts its capture recorded, and here they are held
+    against the kernels the device really ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seqs = [eng.add_request(p[:256], greedy()) for p in prompts]
-    while any(s.num_generated == 0 for s in seqs):
-        eng.step()  # the prefill (several chunks with chunked prefill)
-    eng.step()  # one decode step outside the window
-    steps = 4
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    before = {name: w.launches for name, w in counted.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    eng.abort_all()
+        profiled_ms = (time.perf_counter() - t) * 1e3 / steps
+    launches = {name: w.launches - before[name] for name, w in counted.items()}
 
     def dev_ms(e):
         us = getattr(e, "self_device_time_total", None)
@@ -1105,18 +1129,418 @@ def profile_decode(eng, prompts, greedy) -> dict:
         reverse=True,
     )
     busy_ms = sum(dev_ms(e) for e in kernels)
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def traced_calls(patterns) -> int:
+        return sum(e.count for e in device if any(p in e.key for p in patterns))
+
+    traced = {name: traced_calls(TRACED[name]) for name in launches}
+    traced["combine_kernel"] = traced_calls(("::combine_kernel",))
+    launches["combine_kernel"] = launches["paged_decode"] + launches["paged_decode_int8"]
+    if traced != launches:
+        fail(f"launch counts over a profiled window {launches} != the traced kernels {traced}")
     return {
-        "phase": "profile_decode",
-        "lanes": len(prompts),
-        "context_tokens": 256,
+        "model_steps_per_call": model_steps,
         "step_wall_ms": wall_ms,
+        "step_wall_ms_profiled": profiled_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "device_idle_share_profiled": max(0.0, 1 - busy_ms / profiled_ms),
+        "wall_ms_per_model_step": wall_ms / model_steps,
+        "device_ms_per_model_step": busy_ms / model_steps,
+        "launches_traced_per_step": {name: n / steps for name, n in traced.items() if n},
         "top_kernels_ms_per_step": [
             {"name": e.key[:80], "ms": dev_ms(e), "calls_per_step": e.count / steps}
             for e in kernels[:12]
         ],
     }
+
+
+def profile_decode(eng, prompts, server, ops) -> dict:
+    """Where a decode step's time goes: ``profile_window`` over steady
+    engine steps of 8 lanes (each a graph replay of ``decode_steps_per_iter``
+    model steps), after the main path's counts were read. Two steps run
+    before the windows (the first may capture); every lane has tokens left
+    for all of them, so the lane set holds."""
+    seqs = [eng.add_request(p[:256], server.SamplingParams(max_new_tokens=64)) for p in prompts]
+    while any(s.num_generated == 0 for s in seqs):
+        eng.step()  # the prefill (several chunks with chunked prefill)
+    eng.step()
+    eng.step()
+    keys = eng.decode_graphs.keys
+    out = profile_window(eng.step, 4, eng.config.decode_steps_per_iter, ops.COUNTED)
+    if eng.decode_graphs.keys != keys:
+        fail(f"a graph was captured inside the profiled windows: {keys} -> {eng.decode_graphs.keys}")
+    eng.abort_all()
+    return dict({"phase": "profile_decode", "lanes": len(prompts), "context_tokens": 256}, **out)
+
+
+# -- the decode fast path: graph replays against eager, knobs off against on --
+#: the fast-path knobs the phase turns on together
+FAST_KNOBS = dict(decode_fused_sampling=True, decode_steps_per_iter=4, decode_pipeline=True)
+#: the bar for a burst's logits against eager where a capture changed a
+#: library's algorithm (tokens still equal, KV pages not bit-equal)
+REPLAY_LOGITS_BAR = 1e-4
+
+
+@contextlib.contextmanager
+def logits_tap(llama):
+    """Within the block, keep the logits each ``decode_steps`` step samples
+    from: the tensors themselves, which under capture are the graph's own
+    buffers and hold the latest replay's logits."""
+    seen, orig = [], llama.sample_tokens
+
+    def sample(logits, *args):
+        seen.append(logits)
+        return orig(logits, *args)
+
+    llama.sample_tokens = sample
+    try:
+        yield seen
+    finally:
+        llama.sample_tokens = orig
+
+
+def scratch_lanes(models, params, cfg, prompts, ps, dev, kv_mode, lanes=8, n=300):
+    """``lanes`` lanes of ``n``-token prompts, all but each one's last token
+    prefilled into a scratch pool (bf16 pages, or int8 pages with their
+    scales for ``kv_mode="int8"``), for direct decode calls: the pool
+    ``[k_pages, v_pages, k_scales, v_scales]`` (no scales: None) and the
+    inputs of the last token's decode."""
+    width = -(-(n + 8) // ps)
+    pages = lanes * width + 1
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev).view(lanes, width)
+    tokens = torch.tensor([p[:n] for p in prompts[:lanes]], dtype=torch.int32, device=dev)
+    pos = torch.arange(n - 1, dtype=torch.int32, device=dev)[None].expand(lanes, -1).contiguous()
+    pool = list(models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=kv_mode))
+    pool += list(models.init_kv_scales(cfg, pages, dev)) if kv_mode else [None, None]
+    models.prefill(params, cfg, tokens[:, :-1], pos, torch.ones_like(pos, dtype=torch.bool),
+                   pool[0], pool[1], torch.gather(table, 1, pos.long() // ps), pos % ps,
+                   torch.zeros((lanes, 0), dtype=torch.int32, device=dev),
+                   torch.zeros((lanes,), dtype=torch.int32, device=dev),
+                   *[t for t in pool[2:] if t is not None])
+    last = torch.full((lanes,), n - 1, dtype=torch.int32, device=dev)
+    inputs = dict(tokens=tokens[:, -1].contiguous(), positions=last, seq_lens=last + 1,
+                  block_tables=table, temperature=torch.zeros(lanes, device=dev),
+                  top_k=torch.zeros(lanes, dtype=torch.int32, device=dev),
+                  top_p=torch.ones(lanes, device=dev))
+    return pool, inputs
+
+
+def eager_vs_replay(pkg, eng, cfg, prompts, ps, dev, k: int) -> dict:
+    """Two bursts of ``k`` steps on identical inputs and twin pools, run
+    through ``llama.decode_steps`` eagerly and as ``DecodeGraphs`` replays,
+    each side from its own generator seeded alike. Six lanes are greedy, two
+    sample at temperature 1. The greedy lanes' tokens and every written KV
+    page (and scale) must be bit-equal; page 0 is left out: it is the
+    reserved page that padded lanes, and the graphs' warm-up, write. The
+    sampled lanes are reported equal or not (a registered generator hands a
+    replay the offsets an eager call would take), and the two replays must
+    sample differently: the replays advance the generator.
+
+    The one way out of bit-equality: a capture that makes a library pick
+    another algorithm than the eager call did. It is taken only where that
+    cause shows (a plain capture of one ``decode_step`` differs from eager
+    too, ``logits_eager_vs_captured``), the greedy tokens are equal, and the
+    first replayed burst's own logits, every step on the greedy lanes, are
+    within ``REPLAY_LOGITS_BAR`` of the first eager burst's."""
+    models, llama, decode_graphs = pkg["models"], pkg["llama"], pkg["decode_graphs"]
+    pool, inp = scratch_lanes(models, eng.params, cfg, prompts, ps, dev, eng.config.kv_quant_hbm)
+    inp["temperature"][-2:] = 1.0
+    twin = [t.clone() if t is not None else None for t in pool]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lanes, width = inp["block_tables"].shape
+    graphs = decode_graphs.DecodeGraphs(
+        eng.params, cfg, *twin, lanes=lanes, max_pages=width, page_size=ps,
+        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev, chain=False)
+    host = {name: t.cpu().numpy() for name, t in inp.items()}
+    args = (k, host["tokens"], host["positions"], host["seq_lens"], host["block_tables"],
+            host["temperature"], host["top_k"], host["top_p"])
+    with logits_tap(llama) as seen:
+        eager = [llama.decode_steps(
+            eng.params, cfg, inp["tokens"], inp["positions"], pool[0], pool[1],
+            inp["block_tables"], inp["seq_lens"], inp["temperature"], inp["top_k"],
+            inp["top_p"], gen, page_size=ps, num_steps=k, k_scales=pool[2], v_scales=pool[3],
+        )[0].cpu().numpy() for _ in range(2)]
+        eager_logits = torch.stack(seen[:k])
+        t0 = time.perf_counter()
+        replayed = [graphs.dispatch(*args).tokens()]
+        first_s = time.perf_counter() - t0
+        # The last k logits seen are the capture's buffers (after the
+        # warm-up's), holding the first replay's logits.
+        burst_logits = torch.stack(seen[-k:])
+    replayed.append(graphs.dispatch(*args).tokens())
+    torch.cuda.synchronize()
+    pools_equal = all(
+        a is None or torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(pool, twin)
+    )
+    greedy_equal = all((e[:-2] == r[:-2]).all() for e, r in zip(eager, replayed))
+    burst_diff = float((burst_logits[:, :-2].float() - eager_logits[:, :-2].float()).abs().max())
+    del eager_logits, burst_logits
+    advanced = bool((replayed[0][-2:] != replayed[1][-2:]).any())
+    if not advanced:
+        fail(f"two replays sampled the same tokens at temperature 1 (k={k}): the generator "
+             "did not advance")
+    # Dispatch after dispatch, each waited for: the host time to enqueue
+    # one (uploads, replay, copies back) and the wall time to its tokens.
+    enqueue, wall = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        b = graphs.dispatch(*args)
+        t1 = time.perf_counter()
+        b.tokens()
+        enqueue.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    out = {"k": k, "lanes": lanes, "context_tokens": int(inp["positions"][0]),
+           "tokens_equal": bool(greedy_equal), "kv_pages_equal": pools_equal,
+           "burst_logits_max_abs_diff": burst_diff,
+           "sampled_lanes_equal": all((e[-2:] == r[-2:]).all() for e, r in zip(eager, replayed)),
+           "replays_advance_generator": advanced,
+           "capture_and_first_replay_s": first_s, "graph_keys": graphs.keys,
+           "pool_bytes": graphs.pool_bytes(),
+           "dispatch_enqueue_ms_median": float(np.median(enqueue)),
+           "dispatch_to_tokens_ms_median": float(np.median(wall)),
+           "replay_device_ms": cuda_time_ms(lambda: graphs.dispatch(*args), iters=10)}
+    bit_equal = out["tokens_equal"] and pools_equal
+    if k == 1 or not bit_equal:
+        out["logits"] = logits_eager_vs_captured(pkg, eng, cfg, prompts, ps, dev)
+    if not bit_equal:
+        cause = out["logits"]["max_abs_diff"] > 0
+        if not (cause and out["tokens_equal"] and burst_diff <= REPLAY_LOGITS_BAR):
+            fail(f"eager vs replay not bit-equal at k={k}, and not explained by a library "
+                 f"algorithm chosen under capture (a plain capture of one decode_step differs "
+                 f"from eager: {cause}; greedy tokens equal: {out['tokens_equal']}; burst "
+                 f"logits within {REPLAY_LOGITS_BAR}: {burst_diff}): {out}")
+        print(f"chip_smoke: eager vs replay not bit-equal at k={k}: a plain capture of one "
+              f"decode_step differs from eager too ({out['logits']}), so a library picked "
+              f"another algorithm under capture; held instead with equal greedy tokens and the "
+              f"burst's logits within {REPLAY_LOGITS_BAR} ({burst_diff})", flush=True)
+    return out
+
+
+def logits_eager_vs_captured(pkg, eng, cfg, prompts, ps, dev) -> dict:
+    """One ``decode_step``'s logits eagerly and from a captured graph of the
+    same call, on twin scratch pools."""
+    models, llama = pkg["models"], pkg["llama"]
+    pool, inp = scratch_lanes(models, eng.params, cfg, prompts, ps, dev, eng.config.kv_quant_hbm)
+    twin = [t.clone() if t is not None else None for t in pool]
+
+    def call(p):
+        return llama.decode_step(eng.params, cfg, inp["tokens"], inp["positions"], p[0], p[1],
+                                 inp["block_tables"], inp["seq_lens"], page_size=ps,
+                                 k_scales=p[2], v_scales=p[3])[0]
+
+    eager = call(pool)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call([t.clone() if t is not None else None for t in twin])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call(twin)
+    graph.replay()
+    torch.cuda.synchronize()
+    return {"max_abs_diff": float((captured - eager).abs().max()),
+            "max_abs_logit": float(eager.abs().max())}
+
+
+def serve_greedy(pkg, eng, prompts, new_tokens: int) -> tuple[list, list, dict]:
+    """Serve ``prompts`` greedily to the end; the generated tokens, for each
+    of them the block-table width of the burst that sampled it (None for
+    the first, which prefill sampled), and the decode tokens/s of the steps
+    that only decoded, over all of them and over those that captured no
+    graph (the steady state)."""
+    server = pkg["server"]
+    seqs = [eng.add_request(p, server.SamplingParams(max_new_tokens=new_tokens)) for p in prompts]
+    index = {s.seq_id: i for i, s in enumerate(seqs)}
+    widths = [[None] * new_tokens for _ in seqs]
+    commit = eng._commit_burst
+
+    def commit_and_tag(burst):
+        before = [s.num_generated for s in burst["active"]]
+        commit(burst)
+        for s, n in zip(burst["active"], before):
+            widths[index[s.seq_id]][n:s.num_generated] = [burst["toks"].key[1]] * (s.num_generated - n)
+
+    eng._commit_burst = commit_and_tag
+    t_all = {"s": 0.0, "tokens": 0, "steps": 0}
+    t_steady = dict(t_all)
+    capture_s = 0.0
+    while eng.has_work:
+        p0 = eng.prefill_stats["dispatches"]
+        g0 = sum(s.num_generated for s in seqs)
+        n_keys = len(eng.decode_graphs.keys)
+        t = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t
+        if eng.prefill_stats["dispatches"] == p0:
+            captured = len(eng.decode_graphs.keys) != n_keys
+            capture_s += dt if captured else 0.0
+            for acc in (t_all,) if captured else (t_all, t_steady):
+                acc["s"] += dt
+                acc["tokens"] += sum(s.num_generated for s in seqs) - g0
+                acc["steps"] += 1
+    for s in seqs:
+        if s.error or len(s.generated_tokens) != new_tokens:
+            fail(f"request {s.seq_id}: {len(s.generated_tokens)} tokens, error={s.error}")
+    del eng._commit_burst
+    return [list(s.generated_tokens) for s in seqs], widths, {
+        "decode_tokens_per_s": t_all["tokens"] / t_all["s"],
+        "decode_tokens_per_s_steady": t_steady["tokens"] / t_steady["s"],
+        "decode_steps": t_all["steps"], "steady_steps": t_steady["steps"],
+        "capturing_steps_s": capture_s}
+
+
+def plan_logit_error(pkg, eng, cfg, prompts, ps, dev, widths: tuple[int, int]) -> float:
+    """How far one ``decode_step``'s logits move between two block-table
+    widths whose split plans differ: 8 scratch lanes (their pages fit the
+    narrower table), the table padded with zeros to each width, twin
+    pools; the largest absolute logit difference."""
+    models, llama = pkg["models"], pkg["llama"]
+    n = min(300, min(widths) * ps - 8)
+    pool, inp = scratch_lanes(models, eng.params, cfg, prompts, ps, dev, eng.config.kv_quant_hbm, n=n)
+    twin = [t.clone() if t is not None else None for t in pool]
+    logits = []
+    for w, p in zip(widths, (pool, twin)):
+        table = torch.zeros((inp["block_tables"].shape[0], w), dtype=torch.int32, device=dev)
+        table[:, :inp["block_tables"].shape[1]] = inp["block_tables"]
+        logits.append(llama.decode_step(eng.params, cfg, inp["tokens"], inp["positions"], p[0], p[1],
+                                        table, inp["seq_lens"], page_size=ps,
+                                        k_scales=p[2], v_scales=p[3])[0].float())
+    return float((logits[0] - logits[1]).abs().max())
+
+
+def top2_gap(pkg, eng, cfg, prompt, generated, ps, dev) -> dict:
+    """The knobs-off model's top-2 logit gap at the first token of
+    ``generated``'s continuation: one cold prefill of prompt ++ generated on
+    a scratch pool."""
+    models = pkg["models"]
+    seq = list(prompt) + list(generated)
+    n = len(seq)
+    pages = n // ps + 2
+    kv_mode = eng.config.kv_quant_hbm
+    pool = list(models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=kv_mode))
+    if kv_mode:
+        pool += list(models.init_kv_scales(cfg, pages, dev))
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    logits = models.prefill(eng.params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev),
+                            pos, torch.ones_like(pos, dtype=torch.bool), pool[0], pool[1],
+                            table[pos.long() // ps], pos % ps,
+                            torch.zeros((1, 0), dtype=torch.int32, device=dev),
+                            torch.zeros((1,), dtype=torch.int32, device=dev), *pool[2:])[0][0]
+    top = logits.topk(2)
+    return {"top2_gap": float(top.values[0] - top.values[1]),
+            "logit_range": float(logits.max() - logits.min()),
+            "top2_ids": top.indices.tolist()}
+
+
+def knobs_gate(pkg, eng, cfg, prompts, ps, dev, runs) -> list[dict]:
+    """Knobs-on greedy tokens must equal knobs-off. The one way out is K1's
+    split plan, which reads the table width: a 4-step reservation can push
+    a burst's table into the next width bucket, and another split order
+    moves the logits by float rounding. A difference passes only where all
+    of these hold: it is the only request that differs; the bursts that
+    sampled the token in the two engines ran different plans; and its top-2
+    logit gap (the knobs-off model, one cold prefill) is at most twice the
+    largest logit difference between those two plans, measured here
+    (``plan_logit_error``: a top-2 gap moves by at most twice that). Each
+    difference is reported with its widths, plans, gap and measured
+    error."""
+    off, on = runs["off"], runs["on"]
+    diffs = []
+    for i, (a, b) in enumerate(zip(off["tokens"], on["tokens"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        widths = (off["widths"][i][j], on["widths"][i][j])
+        plans = [None if w is None else run["plans"].get(f"{run['k']}x{w}")
+                 for w, run in zip(widths, (off, on))]
+        d = dict(top2_gap(pkg, eng, cfg, prompts[i], a[:j], ps, dev), request=i, index=j,
+                 off=a[j], on=b[j], widths=list(widths), plans=plans)
+        if None not in widths and plans[0] != plans[1]:
+            d["plan_logit_error"] = plan_logit_error(pkg, eng, cfg, prompts, ps, dev, widths)
+        diffs.append(d)
+    if len(diffs) > 1:
+        fail(f"knobs-on greedy tokens differ from knobs-off in {len(diffs)} requests: {diffs}")
+    for d in diffs:
+        if "plan_logit_error" not in d:
+            fail(f"knobs-on greedy token differs from knobs-off where both engines ran the same "
+                 f"plans: {d}")
+        if d["top2_gap"] > 2 * d["plan_logit_error"]:
+            fail(f"knobs-on greedy token differs from knobs-off with a top-2 gap beyond what the "
+                 f"two split plans move the logits by: {d}")
+    return diffs
+
+
+def decode_fast_path(pkg, ops, eng, cfg, prompts, ps, dev) -> dict:
+    """The decode fast path on one served model, after its main path:
+
+    - eager against replay: one burst of 1 and of 4 steps, bit-equal tokens
+      and KV pages (``eager_vs_replay``);
+    - knobs off against on: the 8 prompts served by an engine with the
+      fast-path knobs off and one with ``FAST_KNOBS``, sharing the
+      parameters; greedy tokens equal (``knobs_gate``);
+    - readings: ``profile_window`` over eager decode (direct
+      ``llama.decode_steps`` of one step, inputs uploaded and tokens read
+      back each call), graph k=1 (knobs off) and graph k=4 pipelined engine
+      steps; decode tokens/s of both engines; graphs captured and pool
+      bytes."""
+    models, llama, server = pkg["models"], pkg["llama"], pkg["server"]
+    out = {"eager_vs_replay": [eager_vs_replay(pkg, eng, cfg, prompts, ps, dev, k) for k in (1, 4)]}
+    free_cuda()
+
+    def engine(**knobs):
+        return server.Engine(
+            server.EngineConfig(
+                model=cfg, block_manager=server.BlockManagerConfig(total_pages=1024, page_size=ps),
+                max_model_len=4096, decode_batch_size=8, seed=SEED,
+                quantize=eng.config.quantize, quantize_experts=eng.config.quantize_experts,
+                kv_quant_hbm=eng.config.kv_quant_hbm, **knobs),
+            params=eng.params, device=dev)
+
+    new_tokens = 32
+    runs = {}
+    for mode, knobs in (("off", {}), ("on", FAST_KNOBS)):
+        e = engine(**knobs)
+        tokens, widths, rates = serve_greedy(pkg, e, prompts, new_tokens)
+        profile = profile_decode(e, prompts, server, ops)
+        plans = {f"{k}x{w}": {name: plan for name, plan in b.plans.items() if plan is not None}
+                 for (k, w), b in sorted(e.decode_graphs._graphs.items())}
+        runs[mode] = {"tokens": tokens, "widths": widths, **rates, "profile": profile,
+                      "graph_keys": e.decode_graphs.keys, "pool_bytes": e.decode_graphs.pool_bytes(),
+                      "dispatches": e.decode_stats["dispatches"], "steps": e.decode_stats["steps"],
+                      "k": e.config.decode_steps_per_iter, "plans": plans}
+        del e
+        free_cuda()
+    out["knobs_on"] = FAST_KNOBS
+    out["greedy_requests_equal"] = sum(a == b for a, b in zip(runs["off"]["tokens"], runs["on"]["tokens"]))
+    out["token_differences"] = knobs_gate(pkg, eng, cfg, prompts, ps, dev, runs)
+    out["plans"] = {mode: runs[mode].pop("plans") for mode in runs}
+    for mode in runs:
+        for key in ("tokens", "widths", "k"):
+            runs[mode].pop(key)
+    out["knobs"] = runs
+
+    # Eager decode, for the idle share the graphs are read against.
+    pool, inp = scratch_lanes(models, eng.params, cfg, prompts, ps, dev, eng.config.kv_quant_hbm)
+    host = {name: t.cpu().numpy() for name, t in inp.items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def eager_step():
+        d = {name: torch.from_numpy(a).to(dev) for name, a in host.items()}
+        llama.decode_steps(eng.params, cfg, d["tokens"], d["positions"], pool[0], pool[1],
+                           d["block_tables"], d["seq_lens"], d["temperature"], d["top_k"],
+                           d["top_p"], gen, page_size=ps, num_steps=1,
+                           k_scales=pool[2], v_scales=pool[3])[0].cpu()
+
+    eager_step()
+    out["eager_profile"] = dict(profile_window(eager_step, 4, 1, ops.COUNTED), lanes=8,
+                                context_tokens=int(host["positions"][0]))
+    del pool
+    free_cuda()
+    return out
 
 
 def attention_checks(ops, models, llama, dev, gen) -> list[dict]:
@@ -1174,7 +1598,7 @@ def main() -> None:
     from llm_d_kv_cache_manager_tpu_torch.kvcache import kvblock
     from llm_d_kv_cache_manager_tpu_torch.models import llama
     from llm_d_kv_cache_manager_tpu_torch.ops import _build
-    from llm_d_kv_cache_manager_tpu_torch.server import serve
+    from llm_d_kv_cache_manager_tpu_torch.server import decode_graphs, serve
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1219,7 +1643,8 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
     free_cuda()
 
-    pkg = {"models": models, "llama": llama, "server": server, "serve": serve, "kvblock": kvblock}
+    pkg = {"models": models, "llama": llama, "server": server, "serve": serve, "kvblock": kvblock,
+           "decode_graphs": decode_graphs}
     by_path, greedy_tokens = {}, {}
     for path in PATHS:
         by_path[path["label"]] = run_engine(pkg, ops, dev, card, path, greedy_tokens)

@@ -431,18 +431,32 @@ def _embed(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tens
     else:
         h = emb[tokens.long()]
     if cfg.scale_embeddings:  # Gemma: normalizer folded out of the table
-        h = h * torch.tensor(cfg.hidden_size**0.5, dtype=h.dtype, device=h.device)
+        # A fill (no host-to-device copy: capturable in a CUDA graph).
+        h = h * torch.full((), cfg.hidden_size**0.5, dtype=h.dtype, device=h.device)
     return h
+
+
+#: bf16 bytes of an int8 head dequantized at once: the head is the largest
+#: weight (Qwen3-30B-A3B's is 622 MB in bf16), and a decode graph keeps its
+#: largest temporary in the graph pool for good, so it is dequantized and
+#: applied a slice of the vocabulary at a time.
+_HEAD_CHUNK_BYTES = 64 * 2**20
 
 
 def _logits(params: Params, cfg: LlamaConfig, h: torch.Tensor) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-    head = (
-        _w(params["embed"], h.dtype).T
-        if cfg.tie_word_embeddings
-        else _w(params["lm_head"], h.dtype)
-    )
-    return (h @ head).float()
+    if cfg.tie_word_embeddings:
+        return (h @ _w(params["embed"], h.dtype).T).float()
+    head = params["lm_head"]
+    if not isinstance(head, QuantizedTensor):
+        return (h @ head).float()
+    d, vocab = head.shape
+    cols = max(128, _HEAD_CHUNK_BYTES // (2 * d) // 128 * 128)
+    out = torch.empty(h.shape[:-1] + (vocab,), dtype=torch.float32, device=h.device)
+    for c0 in range(0, vocab, cols):
+        part = QuantizedTensor(head.q[:, c0 : c0 + cols], head.scale[:, c0 : c0 + cols])
+        out[..., c0 : c0 + cols] = h @ _w(part, h.dtype)
+    return out
 
 
 def _scatter_kv_pages_all_layers(

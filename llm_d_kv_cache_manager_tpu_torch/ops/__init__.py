@@ -19,7 +19,18 @@ from .gmm import (
     plan_grouped_matmul,
 )
 
+#: every kernel wrapper that counts its launches (``wrapper.launches``), by
+#: kernel name
+COUNTED = {
+    "paged_decode": paged_attention,
+    "paged_decode_int8": paged_decode_int8,
+    "flash_prefill": flash_prefill_paged,
+    "grouped_matmul_bf16": grouped_matmul_bf16,
+    "grouped_matmul_int8": grouped_matmul_int8,
+}
+
 __all__ = [
+    "COUNTED",
     "sample_tokens",
     "rms_norm",
     "apply_rope",

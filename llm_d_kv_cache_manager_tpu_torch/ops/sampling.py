@@ -20,7 +20,9 @@ def _filtered_logits(
 ) -> torch.Tensor:
     """Temperature-scaled logits with top-k/top-p masking (-inf off-support)."""
     vocab = logits.shape[-1]
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype, device=logits.device)
+    # A fill, not torch.tensor(...): no host-to-device copy, so the decode
+    # burst that samples can be captured in a CUDA graph.
+    neg_inf = torch.full((), float("-inf"), dtype=logits.dtype, device=logits.device)
 
     # Temperature scaling (guard 0 for the greedy lanes).
     safe_t = torch.where(temperature > 0, temperature, torch.ones_like(temperature))[:, None]

@@ -11,9 +11,12 @@ memory (``kv_quant_hbm="int8"``: int8 page pools with per-page f32 scale
 pools ``k_scales``/``v_scales``) and chunked prefill
 (``SchedulerConfig.chunked_prefill_tokens``: a step then prefills up to
 that many prompt tokens and decodes the running lanes in the same
-iteration). The other knob-gated features of the JAX engine — host/remote
-tiers, transfer, speculative decoding, fused multi-step decode, TP/SP —
-are not ported yet, and their config fields do not exist here.
+iteration), and the decode fast path (``decode_steps_per_iter``,
+``decode_pipeline``, ``decode_fused_sampling``: multi-step bursts, burst
+N+1 dispatched before burst N commits, with the JAX engine's drain rules).
+The other knob-gated features of the JAX engine — host/remote tiers,
+transfer, speculative decoding, TP/SP — are not ported yet, and their
+config fields do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -23,7 +26,10 @@ slot 0).
 
 The engine runs on CUDA (prefill through the flash-prefill kernel, decode
 through the paged-decode kernel) unless it is built with ``device="cpu"``,
-which runs the kernels' plain PyTorch versions.
+which runs the kernels' plain PyTorch versions. Every decode burst goes
+through ``DecodeGraphs`` (``server/decode_graphs.py``): on CUDA one graph
+replay a burst, captured per (k, block-table width); on the CPU the same
+code without capture.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..models import llama, quant
 from ..models.llama import LlamaConfig
 from ..utils import get_logger
 from .block_manager import AllocationError, BlockManager, BlockManagerConfig
+from .decode_graphs import DecodeGraphs
 from ..ops.sampling import sample_tokens
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence, SequenceStatus
@@ -74,6 +81,11 @@ class EngineConfig:
     max_model_len: int = 2048
     #: decode batch lanes (padded); also the max concurrent running seqs
     decode_batch_size: int = 8
+    #: fused decode steps per engine iteration (one graph replay runs k
+    #: model steps with on-device sampling — one host sync per k tokens).
+    #: 1 = one token per dispatch; sampling is on the device at every
+    #: setting.
+    decode_steps_per_iter: int = 1
     #: prefill length bucket granularity (shape bucketing)
     prefill_bucket: int = 64
     #: decode block-table width bucket (pages): the table is sized to the
@@ -93,6 +105,25 @@ class EngineConfig:
     #: (codes plus one f32 scale per page per (layer, kv head): half the
     #: bytes of a bf16 page). "float8_e4m3" is declared but not implemented.
     kv_quant_hbm: Optional[str] = None
+    #: pipeline fused decode bursts: dispatch burst N+1 (its input tokens
+    #: chained on the device from burst N's last sampled token) BEFORE
+    #: fetching/committing burst N, hiding the host's commit bookkeeping
+    #: under device execution. Needs decode_steps_per_iter > 1. Commit
+    #: bookkeeping lags one burst; any lane-set change (prefill scheduled,
+    #: preemption, finish) drains first, so greedy results are identical to
+    #: the unpipelined engine. (temperature>0 streams are identically
+    #: distributed but not identical across the two modes: discarded
+    #: surplus bursts draw extra noise from the generator.)
+    decode_pipeline: bool = False
+    #: device-resident decode fast path (``DECODE_FUSED_SAMPLING``): the
+    #: pipelined chaining above extended down to k=1 — every steady-state
+    #: decode step takes its input tokens from the previous dispatch's
+    #: on-device sample instead of a host round trip. Greedy outputs are
+    #: identical to the unfused engine (same drain rules as
+    #: decode_pipeline, same temperature>0 caveat). The sampled ids' copy
+    #: to pinned host memory starts right after every dispatch at every
+    #: setting. Off by default = the JAX default.
+    decode_fused_sampling: bool = False
     seed: int = 0
 
 
@@ -119,7 +150,26 @@ class Engine:
         cpt = config.scheduler.chunked_prefill_tokens
         if cpt is not None and cpt < 1:
             raise ValueError("chunked_prefill_tokens must be >= 1 (None disables chunking)")
-        self.max_pages_per_seq = -(-config.max_model_len // ps)
+        if config.decode_steps_per_iter < 1:
+            raise ValueError("decode_steps_per_iter must be >= 1")
+        # decode_fused_sampling keeps the burst machinery live at any k
+        # (k=1 pipelining is exactly the device-resident step-per-token
+        # loop); decode_pipeline alone still needs k > 1 to pay off.
+        self._pipeline = (
+            config.decode_pipeline and config.decode_steps_per_iter > 1
+        ) or config.decode_fused_sampling
+        # Width includes fused-burst headroom: a sequence finishing at
+        # max_model_len mid-burst keeps writing its surplus KV into reserved
+        # pages of its own row, never into another sequence's pages.
+        # Pipelining keeps up to TWO bursts in flight.
+        bursts_in_flight = 2 if self._pipeline else 1
+        self.max_pages_per_seq = -(
+            -(
+                config.max_model_len
+                + max(config.decode_steps_per_iter * bursts_in_flight - 1, 0)
+            )
+            // ps
+        )
 
         self.block_manager = BlockManager(config.block_manager, on_events=on_events)
         sched_cfg = dataclasses.replace(
@@ -181,11 +231,23 @@ class Engine:
         #: dispatches (prefix-cache hits reduce it) and dispatch count.
         self.prefill_stats = {"tokens_computed": 0, "dispatches": 0}
         #: decode dispatches (a mixed step makes one prefill and one decode
-        #: dispatch, so steps do not count them)
-        self.decode_stats = {"dispatches": 0}
+        #: dispatch, so engine steps do not count them) and the model steps
+        #: they ran (``decode_steps_per_iter`` a dispatch)
+        self.decode_stats = {"dispatches": 0, "steps": 0}
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.seed ^ 0x5EED
         )
+        #: every decode burst's dispatch: one CUDA graph replay on the card
+        self.decode_graphs = DecodeGraphs(
+            self.params, cfg, self.k_pages, self.v_pages, self.k_scales, self.v_scales,
+            lanes=config.decode_batch_size, max_pages=self.max_pages_per_seq,
+            page_size=ps, generator=self._generator, device=self.device,
+            chain=self._pipeline,
+        )
+        #: in-flight decode burst (pipelined): its sampled ids on their way
+        #: to the host, the lane-ordered active list, and the np
+        #: position/len arrays the NEXT burst derives from.
+        self._inflight: Optional[dict] = None
         self.finished: list[Sequence] = []
         self._step_count = 0
         #: set once any request carries a deadline — gates the per-step
@@ -249,6 +311,13 @@ class Engine:
                 break
         if seq is None:
             return None
+        # An in-flight pipelined burst may hold this lane on the device:
+        # commit it first so batchmates keep their tokens and the lane set
+        # the next dispatch sees matches scheduler state.
+        if self._inflight is not None and any(
+            s is seq for s in self._inflight["active"]
+        ):
+            self._drain_inflight()
         if seq in self.scheduler.waiting:
             self.scheduler.waiting.remove(seq)
         else:
@@ -271,8 +340,9 @@ class Engine:
         return seq
 
     def abort_all(self) -> list[Sequence]:
-        """Abort every live sequence, releasing all pages. Engine thread
-        only."""
+        """Abort every live sequence: commits any in-flight burst, then
+        releases all pages. Engine thread only."""
+        self._drain_inflight()
         out: list[Sequence] = []
         for seq in (
             list(self.scheduler.waiting)
@@ -318,12 +388,18 @@ class Engine:
                 self.finished.append(seq)
         out = self.scheduler.schedule()
         if out.prefill:
+            # Prefill must see committed decode state (page accounting,
+            # finish detection): it never overlaps an in-flight burst.
+            self._drain_inflight()
             self._run_prefill(out.prefill, out.chunks)
         if out.decode:
             # Mixed step: the lanes were snapshotted at schedule time — a
             # final chunk published above joins next step, and lanes its
-            # page growth preempted are dropped by _run_decode's filters.
-            self._run_decode(out.decode)
+            # page growth preempted are dropped by the decode path's
+            # block_table/finish filters.
+            self._run_decode_fused(out.decode)
+        elif not out.prefill:
+            self._drain_inflight()
 
         newly_finished = list(shed)
         for seq in list(self.scheduler.running):
@@ -451,26 +527,95 @@ class Engine:
         bucket = max(1, self.config.decode_pages_bucket)
         return min(self.max_pages_per_seq, _round_up(used, bucket))
 
-    def _run_decode(self, seqs: list[Sequence]) -> None:
-        """One decode token for every running lane, sampled on the device
-        (the JAX engine's ``_run_decode_fused`` at one step per iteration,
-        no pipelining): reserve each lane's next slot, dispatch, commit."""
+    def _run_decode_fused(self, seqs: list[Sequence]) -> None:
+        """Every decode goes through here; at k=1 it is the classic
+        step-per-token loop, sampling on the device inside the same dispatch
+        (one transfer of sampled ids, never a [lanes, vocab] logit round
+        trip).
+
+        Fused multi-token decode: reserve page capacity for the whole
+        burst up front, dispatch ``decode_steps`` (one graph replay with
+        on-device sampling), then commit sampled tokens per sequence,
+        truncating at stop conditions. Surplus device-side KV writes land in
+        pages the sequence owns (or reserved page 0 for padded lanes) and
+        are never registered in the prefix cache, so discarding them is
+        safe.
+
+        With pipelining, burst N+1 is dispatched BEFORE burst N is
+        fetched: its input tokens are chained on the device from burst N's
+        last sampled token, so host work (fetch, commit, next dispatch)
+        overlaps device execution. The pipeline only continues while the
+        lane set is unchanged and no lane is about to finish; anything else
+        drains first, making greedy results identical to the unpipelined
+        engine (a finished/preempted lane's surplus burst is discarded by
+        the same rules as surplus tokens within a burst)."""
+        k = self.config.decode_steps_per_iter
         lanes = self.config.decode_batch_size
         if len(seqs) > lanes:
             raise RuntimeError(f"{len(seqs)} running sequences exceed {lanes} decode lanes")
+
+        prev = self._inflight
+        if prev is not None:
+            # Drain when the pipeline cannot (or should not) continue:
+            # different lane set, or every lane reaches its token budget
+            # within the in-flight burst (pipelining then only produces a
+            # surplus burst that gets discarded).
+            same_lanes = len(prev["active"]) == len(seqs) and all(
+                a is b for a, b in zip(prev["active"], seqs)
+            )
+            all_done_after_prev = all(
+                s.num_generated + k >= s.sampling.max_new_tokens for s in seqs
+            )
+            if not same_lanes or all_done_after_prev:
+                self._drain_inflight()
+                prev = None
+
+        # Commit lag means any drain can finish lanes mid-call; never
+        # reserve pages for (or redispatch) a finished sequence — the
+        # unpipelined engine would have finished it a step() ago.
         seqs = [s for s in seqs if not self._should_finish(s)]
         if not seqs:
             return
-        # Reservation may preempt batchmates out of `seqs`.
+
+        # Reserve capacity for the burst's growth per sequence (x 2 when a
+        # previous burst is still in flight); preemption inside reservation
+        # may knock batchmates out of `seqs` — or the in-flight set.
+        reserve = k * (2 if self._pipeline else 1)
         for seq in seqs:
+            # The finished re-check matters after a mid-loop degrade-drain
+            # (below): committing the lagged burst can finish any lane.
             if not seq.block_table or self._should_finish(seq):
                 continue
-            self._reserve_slots_or_preempt(seq, 1)
+            if reserve > k:
+                # Double-burst headroom is an optimization, not a
+                # requirement: when the pool is too tight for it, drain and
+                # degrade to the unpipelined reservation rather than
+                # preempting/aborting lanes the unpipelined engine would
+                # complete.
+                try:
+                    self.block_manager.reserve_slots(seq, reserve)
+                    continue
+                except AllocationError:
+                    self._drain_inflight()
+                    prev = None
+                    reserve = k
+                    if self._should_finish(seq):
+                        continue  # the drain just finished this lane
+            self._reserve_slots_or_preempt(seq, reserve)
+        # A degrade-drain above may also have finished lanes.
         active = [s for s in seqs if s.block_table and not self._should_finish(s)]
+        if prev is not None:
+            same = len(prev["active"]) == len(active) and all(
+                a is b for a, b in zip(prev["active"], active)
+            )
+            if not same:  # reservation preempted an in-flight lane
+                self._drain_inflight()
+                prev = None
+                active = [s for s in active if not self._should_finish(s)]
         if not active:
+            self._drain_inflight()
             return
 
-        tokens = np.zeros((lanes,), np.int32)
         positions = np.zeros((lanes,), np.int32)
         seq_lens = np.zeros((lanes,), np.int32)  # 0 = inactive lane
         block_tables = np.zeros((lanes, self._decode_table_width(active)), np.int32)
@@ -483,33 +628,55 @@ class Engine:
             temperature[i] = seq.sampling.temperature
             top_k[i] = seq.sampling.top_k
             top_p[i] = seq.sampling.top_p
-            tokens[i] = seq.all_tokens[-1]
-            positions[i] = seq.num_tokens - 1
-            seq_lens[i] = seq.num_tokens
 
-        toks = llama.decode_steps(
-            self.params,
-            self.model_cfg,
-            self._to_device(tokens),
-            self._to_device(positions),
-            self.k_pages,
-            self.v_pages,
-            self._to_device(block_tables),
-            self._to_device(seq_lens),
-            self._to_device(temperature),
-            self._to_device(top_k),
-            self._to_device(top_p),
-            self._generator,
-            page_size=self.page_size,
-            num_steps=1,
-            k_scales=self.k_scales,
-            v_scales=self.v_scales,
-        )[0]
+        if prev is not None:
+            # Chain from the in-flight burst: its last sampled token stays
+            # on the device; positions/lengths advance by k without a host
+            # sync. Inactive padded lanes keep their 0 = inactive sentinel:
+            # they must not run garbage attention or write KV into reserved
+            # page 0 just because the active lanes advanced.
+            tokens = None
+            was_active = prev["seq_lens"] > 0
+            positions = np.where(was_active, prev["positions"] + k, 0).astype(np.int32)
+            seq_lens = np.where(was_active, prev["seq_lens"] + k, 0).astype(np.int32)
+        else:
+            tokens = np.zeros((lanes,), np.int32)
+            for i, seq in enumerate(active):
+                tokens[i] = seq.all_tokens[-1]
+                positions[i] = seq.num_tokens - 1
+                seq_lens[i] = seq.num_tokens
+
+        toks = self.decode_graphs.dispatch(
+            k, tokens, positions, seq_lens, block_tables, temperature, top_k, top_p
+        )
         self.decode_stats["dispatches"] += 1
-        self._commit_burst({"toks": toks, "active": active, "k": 1})
+        self.decode_stats["steps"] += k
+        burst = {
+            "toks": toks,
+            "active": active,
+            "k": k,
+            "positions": positions,
+            "seq_lens": seq_lens,
+        }
+        if prev is not None:
+            # Commit burst N while burst N+1 executes on the device.
+            self._inflight = None
+            self._commit_burst(prev)
+        if self._pipeline:
+            self._inflight = burst
+        else:
+            self._commit_burst(burst)
+
+    def _drain_inflight(self) -> None:
+        if self._inflight is None:
+            return
+        burst, self._inflight = self._inflight, None
+        self._commit_burst(burst)
 
     def _commit_burst(self, burst: dict) -> None:
-        toks = burst["toks"].cpu().numpy()  # [lanes, k] — the one host sync
+        # [lanes, k] from pinned host memory: waits on this burst's copy
+        # event, the one host sync of a burst.
+        toks = burst["toks"].tokens()
         for i, seq in enumerate(burst["active"]):
             if not seq.block_table:
                 continue  # preempted after this burst was dispatched

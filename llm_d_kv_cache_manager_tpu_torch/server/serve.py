@@ -10,8 +10,10 @@ continuous-batching ``Engine`` wrapped in
   the indexer's subscriber reads from the JAX pods),
 - an OpenAI-style HTTP surface: ``POST /v1/completions``, ``GET /healthz``.
 
-The JAX pod's knob-gated surfaces (transfer, tiers, drain, admission
-control, tenants, observability) are not ported yet.
+Per-request deadlines are ported (the ``X-Request-Deadline`` header, a
+budget in seconds, and the ``REQUEST_DEADLINE_S`` default). The JAX pod's
+other knob-gated surfaces (transfer, tiers, drain, admission control,
+tenants, observability) are not ported yet.
 
 Run: ``python -m llm_d_kv_cache_manager_tpu_torch.server.serve`` (needs
 aiohttp, and pyzmq for publishing).
@@ -19,6 +21,7 @@ aiohttp, and pyzmq for publishing).
 
 from __future__ import annotations
 
+import math
 import os
 import socket
 import threading
@@ -49,7 +52,14 @@ log = get_logger("server.serve")
 
 
 def _env_bool(name: str, default: str) -> bool:
-    return os.environ.get(name, default).strip().lower() in ("1", "true", "yes", "on")
+    """The JAX pod's parsing: anything but 0/false/no/off/empty is true."""
+    return os.environ.get(name, default).strip().lower() not in (
+        "0",
+        "false",
+        "no",
+        "off",
+        "",
+    )
 
 
 @dataclass
@@ -61,6 +71,11 @@ class PodServerConfig:
     publish_events: bool = True
     data_parallel_rank: Optional[int] = None
     http_port: int = 8000
+    #: default per-request deadline in seconds when the client sends no
+    #: ``X-Request-Deadline`` header. Expired waiting requests are shed
+    #: before prefill; running requests finish early with
+    #: ``finish_reason="deadline"``. 0 = no deadline.
+    default_deadline_s: float = 0.0
     engine: EngineConfig = field(default_factory=EngineConfig)
 
     @classmethod
@@ -73,6 +88,9 @@ class PodServerConfig:
         if "DP_RANK" in os.environ:
             cfg.data_parallel_rank = int(os.environ["DP_RANK"])
         cfg.http_port = int(os.environ.get("HTTP_PORT", cfg.http_port))
+        cfg.default_deadline_s = float(
+            os.environ.get("REQUEST_DEADLINE_S", cfg.default_deadline_s)
+        )
         eng = cfg.engine
         eng.block_manager = BlockManagerConfig(
             total_pages=int(os.environ.get("TOTAL_PAGES", 1024)),
@@ -84,6 +102,15 @@ class PodServerConfig:
         eng.decode_batch_size = int(
             os.environ.get("DECODE_BATCH_SIZE", eng.decode_batch_size)
         )
+        eng.decode_steps_per_iter = int(
+            os.environ.get("DECODE_STEPS_PER_ITER", eng.decode_steps_per_iter)
+        )
+        # Pipeline fused-decode bursts (host/device overlap); needs
+        # DECODE_STEPS_PER_ITER > 1 to take effect.
+        eng.decode_pipeline = _env_bool("DECODE_PIPELINE", "0")
+        # Device-resident decode fast path: last-token ids stay on the
+        # device across steps at any burst width. Off = the JAX default.
+        eng.decode_fused_sampling = _env_bool("DECODE_FUSED_SAMPLING", "0")
         # Weight quantization ("int8" halves weight bytes; models/quant.py).
         eng.quantize = os.environ.get("QUANTIZE") or None
         # int8 KV pages in device memory (twice the pages per byte).
@@ -243,6 +270,8 @@ class PodServer:
         ``request_id`` for ``abort``."""
         if not prompt_tokens:
             raise ValueError("empty prompt")
+        if deadline_s is None and self.config.default_deadline_s > 0:
+            deadline_s = self.config.default_deadline_s
         deadline = (
             time.monotonic() + deadline_s
             if deadline_s is not None and deadline_s > 0
@@ -331,8 +360,24 @@ class PodServer:
                 return web.json_response(
                     {"error": f"invalid request field: {e}"}, status=400
                 )
+            # Per-request deadline: X-Request-Deadline header (seconds of
+            # budget), falling back to the configured default inside submit.
+            deadline_s = None
+            hdr = request.headers.get("X-Request-Deadline")
+            if hdr is not None:
+                try:
+                    deadline_s = float(hdr)
+                    # NaN fails every comparison, so `<= 0` alone would
+                    # silently accept it as "no deadline": reject instead.
+                    if not math.isfinite(deadline_s) or deadline_s <= 0:
+                        raise ValueError
+                except ValueError:
+                    return web.json_response(
+                        {"error": "invalid X-Request-Deadline (want seconds > 0)"},
+                        status=400,
+                    )
             try:
-                fut = self.submit(token_ids, sampling)
+                fut = self.submit(token_ids, sampling, deadline_s=deadline_s)
             except ValueError as e:
                 return web.json_response({"error": str(e)}, status=400)
             except RuntimeError as e:  # engine failure / shutdown

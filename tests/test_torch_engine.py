@@ -85,12 +85,14 @@ class _Side:
     """One framework's engine plus the events it emitted."""
 
     def __init__(self, torch_side, params, total_pages, decode_batch, max_model_len, prefill_batch,
-                 model="tiny-llama"):
+                 model="tiny-llama", **engine_knobs):
+        """``engine_knobs``: further ``EngineConfig`` fields, the same for
+        both frameworks (the decode fast path's, in its tests)."""
         self.events = []
         sink = lambda evs: self.events.append(list(evs))  # noqa: E731
         preset, quantize, kv_quant_hbm = MODELS[model]
         knobs = dict(quantize=quantize, quantize_experts=quantize is not None,
-                     kv_quant_hbm=kv_quant_hbm)
+                     kv_quant_hbm=kv_quant_hbm, **engine_knobs)
         if torch_side:
             self.SP = TSP
             self.batch_cls = TEventBatch

@@ -252,3 +252,119 @@ def test_jax_indexer_routes_repeat_to_torch_pod_in_mixed_fleet():
         pool.shutdown()
         tpod.shutdown()
         jpod.shutdown()
+
+
+def _deadline_pod(framework):
+    """A pod of either framework on TINY_LLAMA (JAX in interpret mode, the
+    port on the CPU) with the JAX deadline test's shape: 256 pages of 4,
+    max_model_len 512."""
+    if framework == "jax":
+        from llm_d_kv_cache_manager_tpu.server import (
+            BlockManagerConfig as JBM,
+            EngineConfig as JEC,
+            SchedulerConfig as JSC,
+        )
+        from llm_d_kv_cache_manager_tpu.server.serve import (
+            PodServer as JPodServer,
+            PodServerConfig as JPodServerConfig,
+        )
+
+        eng = JEC(model=J_TINY, block_manager=JBM(total_pages=256, page_size=PS),
+                  scheduler=JSC(max_prefill_batch=4), max_model_len=512, decode_batch_size=4,
+                  prefill_bucket=8, interpret=True)
+        return JPodServer(JPodServerConfig(model_name=MODEL, pod_identifier="jax-deadline",
+                                           publish_events=False, engine=eng))
+    eng = EngineConfig(model=TINY_LLAMA, block_manager=BlockManagerConfig(total_pages=256, page_size=PS),
+                       scheduler=SchedulerConfig(max_prefill_batch=4), max_model_len=512,
+                       decode_batch_size=4, prefill_bucket=8)
+    return PodServer(PodServerConfig(model_name=MODEL, pod_identifier="torch-deadline",
+                                     publish_events=False, engine=eng), device="cpu")
+
+
+def _deadline_answers(server):
+    """The scenario of ``tests/test_overload.py::TestDeadlines::
+    test_http_deadline_header``: (status, finish_reason, tokens) for a
+    10,000-token ask under ``X-Request-Deadline: 0.4``, then the status of a
+    2-token ask under each invalid header value."""
+    server.start()
+
+    async def scenario():
+        client = TestClient(TestServer(server.build_app()))
+        await client.start_server()
+        try:
+            resp = await client.post(
+                "/v1/completions",
+                json={"prompt_token_ids": _prompt(8, 8), "max_tokens": 10_000},
+                headers={"X-Request-Deadline": "0.4"},
+            )
+            data = await resp.json()
+            answers = {"0.4": (resp.status, data["choices"][0]["finish_reason"],
+                               len(data["choices"][0]["token_ids"]))}
+            for bad in ("bogus", "nan", "inf", "-1", "0"):
+                resp = await client.post(
+                    "/v1/completions",
+                    json={"prompt_token_ids": _prompt(8, 8), "max_tokens": 2},
+                    headers={"X-Request-Deadline": bad},
+                )
+                answers[bad] = (resp.status, (await resp.json()).get("error"))
+            return answers
+        finally:
+            await client.close()
+
+    try:
+        return asyncio.run(scenario())
+    finally:
+        server.shutdown()
+
+
+def test_http_deadline_header_matches_jax_pod():
+    """Both pods read ``X-Request-Deadline`` alike: a 200 that finishes with
+    ``"deadline"`` and fewer tokens than asked, and a 400 (with the same
+    message) for a value that is not finite or not above 0."""
+    jax_answers = _deadline_answers(_deadline_pod("jax"))
+    torch_answers = _deadline_answers(_deadline_pod("torch"))
+    for answers in (jax_answers, torch_answers):
+        status, reason, n = answers["0.4"]
+        assert status == 200 and reason == "deadline" and 0 < n < 10_000
+    assert {h: a[:2] for h, a in torch_answers.items()} == {h: a[:2] for h, a in jax_answers.items()}
+    assert all(torch_answers[bad][0] == 400 for bad in ("bogus", "nan", "inf", "-1", "0"))
+
+
+def test_default_deadline_applies_without_header():
+    """``PodServerConfig.default_deadline_s`` bounds a request that sends no
+    header, as in the JAX pod (``submit`` falls back to it)."""
+    pod = _deadline_pod("torch")
+    pod.config.default_deadline_s = 0.4
+    pod.start()
+    try:
+        seq = pod.generate(_prompt(7, 8), SamplingParams(max_new_tokens=10_000), timeout=120)
+    finally:
+        pod.shutdown()
+    assert seq.finish_reason == "deadline" and 0 < seq.num_generated < 10_000
+
+
+def test_from_env_reads_deadline_and_decode_fast_path(monkeypatch):
+    """``REQUEST_DEADLINE_S`` and the three ``DECODE_*`` variables, with the
+    JAX pod's defaults and parsing, on both pods."""
+    from llm_d_kv_cache_manager_tpu.server.serve import PodServerConfig as JPodServerConfig
+
+    for name in ("REQUEST_DEADLINE_S", "DECODE_STEPS_PER_ITER", "DECODE_PIPELINE",
+                 "DECODE_FUSED_SAMPLING"):
+        monkeypatch.delenv(name, raising=False)
+
+    def read(cls):
+        c = cls.from_env()
+        e = c.engine
+        return (c.default_deadline_s, e.decode_steps_per_iter, e.decode_pipeline,
+                e.decode_fused_sampling)
+
+    assert read(PodServerConfig) == read(JPodServerConfig) == (0.0, 1, False, False)
+    for fused in ("1", "yes", "anything", "off", "0", "False", ""):
+        monkeypatch.setenv("REQUEST_DEADLINE_S", "2.5")
+        monkeypatch.setenv("DECODE_STEPS_PER_ITER", "4")
+        monkeypatch.setenv("DECODE_PIPELINE", "true")
+        monkeypatch.setenv("DECODE_FUSED_SAMPLING", fused)
+        assert read(PodServerConfig) == read(JPodServerConfig)
+        assert read(PodServerConfig)[:3] == (2.5, 4, True)
+    monkeypatch.setenv("DECODE_FUSED_SAMPLING", "on")
+    assert read(PodServerConfig)[3] is True
