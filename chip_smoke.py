@@ -22,7 +22,15 @@ k=4 pipelined decode. On the 8B path's parameters the ``host_tier`` phase
 then serves three rounds of four 1024-token prompts through engines with a
 host-DRAM tier (round 3 repeats round 1, which round 2 evicted to pinned
 host memory): restored pages are held against round 1's, greedy tokens
-against engines that never evict, and the copies' GB/s against PCIe.
+against engines that never evict, and the copies' GB/s against PCIe. The
+``kv_transfer`` phase, on the same parameters, serves four 1024-token
+prompts on a source pod with an export service on 127.0.0.1 and pulls
+them into target pods over loopback ZMQ (``pull_prefix`` and
+``ASYNC_PULL``; bf16, an int8 wire, int8 pages and a host-tier export):
+pulled pages are held against the source's, greedy tokens against the
+source's warm repeat, and the wire, export, fetch and import times and the
+import's GB/s are reported beside TTFTs and the transfer cost model's
+verdict.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -691,7 +699,7 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 #: prefill/decode steps).
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
-         fast_path=True, host_tier=True),
+         fast_path=True, host_tier=True, kv_transfer=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
          fast_path=True),
@@ -1035,6 +1043,10 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         label = path["label"] + "_host_tier"
         result, by_path[label] = host_tier(pkg, ops, dev, card, eng.params, cfg)
         emit(dict(result, path=label))
+    if path.get("kv_transfer"):
+        label = path["label"] + "_kv_transfer"
+        result, by_path[label] = kv_transfer(pkg, ops, dev, card, eng.params, cfg)
+        emit(dict(result, path=label))
     return by_path
 
 
@@ -1058,13 +1070,22 @@ HOST_TIER_RUNS = (
 )
 
 
-def plain_int8_round_trip(pages: torch.Tensor) -> torch.Tensor:
-    """Pages ``[L, n, ps, n_kv, hd]`` quantized to int8 with one scale per
-    (layer, page, kv head) and dequantized, in plain torch: what a page
-    restored from an int8 host tier must hold."""
+def plain_int8_codes(pages: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pages ``[L, n, ps, n_kv, hd]`` quantized to int8 with one f32 scale
+    per (layer, page, kv head) ``[L, n, 1, n_kv, 1]``, in plain torch (127
+    a tensor divisor, so the quotient is the true one: CUDA divides by a
+    Python scalar through its reciprocal)."""
     x = pages.float()
-    scale = torch.clamp(x.abs().amax(dim=(2, 4), keepdim=True), min=1e-8) / 127.0
-    return (torch.clamp(torch.round(x / scale), -127, 127) * scale).to(pages.dtype)
+    amax = x.abs().amax(dim=(2, 4), keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8), scale
+
+
+def plain_int8_round_trip(pages: torch.Tensor) -> torch.Tensor:
+    """``plain_int8_codes`` dequantized: what a page restored from an int8
+    host tier, or imported from an int8 wire, must hold."""
+    q, scale = plain_int8_codes(pages)
+    return (q.float() * scale).to(pages.dtype)
 
 
 def pinned_copy_gb_s(n_bytes: int, to_host: bool) -> float:
@@ -1278,6 +1299,449 @@ def host_tier(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
         "seconds": time.perf_counter() - t_phase,
     }
     return result, launches
+
+
+# -- cross-pod KV transfer ------------------------------------------------------
+#: the served model's name, which the export service checks on every fetch
+TRANSFER_MODEL = "meta-llama/Llama-3.1-8B-Instruct"
+#: first-token logits over imported int8 pages against the source's bf16
+#: pages: within this share of the source logits' largest magnitude (the
+#: int8 bar of ``warm_vs_cold``)
+INT8_LOGITS_BAR = 0.05
+
+
+def free_local_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def transfer_engine(server, dev, params, cfg, knobs):
+    knobs = dict(knobs)
+    total, host_pages = knobs.pop("total_pages", 1024), knobs.pop("host_pages", 0)
+    return server.Engine(
+        server.EngineConfig(model=cfg, max_model_len=2048, decode_batch_size=8, seed=SEED,
+                            block_manager=server.BlockManagerConfig(
+                                total_pages=total, page_size=16, host_pages=host_pages),
+                            **knobs),
+        params=params, device=dev)
+
+
+def chain_pages(eng, prompts, n_pages: int) -> list[torch.Tensor]:
+    """The first ``n_pages`` pages of each prompt's chain in ``eng``'s
+    pools (and scale pools), ``[L, pages, ...]``, prompts in order."""
+    bm = eng.block_manager
+    idx = torch.tensor([bm._cached[h] for p in prompts for h in bm.token_db.prefix_hashes(p)[:n_pages]],
+                       device=eng.device)
+    return [t.index_select(1, idx) for t in eng._device_pools()]
+
+
+def wire_tensor(blocks, field: str, dtype: torch.dtype, shape: tuple, dev) -> torch.Tensor:
+    """One payload field of every block as ``[n, *shape]`` on ``dev``."""
+    return torch.stack([torch.frombuffer(bytearray(getattr(b, field)), dtype=dtype).reshape(shape)
+                        for b in blocks]).to(dev)
+
+
+def last_page_logits(models, eng, cfg, prompt, dev) -> torch.Tensor:
+    """First-token logits of ``prompt``'s last page prefilled against the
+    rest of its chain as ``eng``'s pools hold it (context from the pool:
+    imported pages on a target), its K/V written into a free page."""
+    ps, bm = eng.page_size, eng.block_manager
+    n_ctx = (len(prompt) - 1) // ps
+    ctx = [bm._cached[h] for h in bm.token_db.prefix_hashes(prompt)[:n_ctx]]
+    start = n_ctx * ps
+    m = len(prompt) - start
+    pos = torch.arange(start, start + m, dtype=torch.int32, device=dev)[None]
+    logits = models.prefill(
+        eng.params, cfg, torch.tensor([prompt[start:]], dtype=torch.int32, device=dev), pos,
+        torch.ones((1, m), dtype=torch.bool, device=dev), eng.k_pages, eng.v_pages,
+        torch.full((1, m), bm._free[-1], dtype=torch.int32, device=dev), pos % ps,
+        torch.tensor([ctx], dtype=torch.int32, device=dev),
+        torch.tensor([start], dtype=torch.int32, device=dev),
+        k_scales=eng.k_scales, v_scales=eng.v_scales,
+    )[0][0]
+    torch.cuda.synchronize()
+    return logits
+
+
+def fetch_blocks(transfer, endpoint: str, eng, prompts) -> tuple[list, list, list]:
+    """Each prompt's chain fetched over loopback ZMQ by a plain client, as
+    a peer fetches it: the blocks, the wall ms of each fetch, and its MiB.
+    The first fetch also dials the socket."""
+    client = transfer.KVTransferClient(transfer.TransferClientConfig(endpoint=endpoint, timeout_s=60))
+    out, ms, mib = [], [], []
+    try:
+        for p in prompts:
+            t = time.perf_counter()
+            blocks, complete = client.fetch(TRANSFER_MODEL, eng.block_manager.token_db.prefix_hashes(p), 64)
+            ms.append((time.perf_counter() - t) * 1e3)
+            if not complete or not blocks:
+                fail(f"kv transfer: fetched {len(blocks)} blocks, complete={complete}")
+            out.append(blocks)
+            mib.append(sum(b.wire_bytes for b in blocks) / 2**20)
+    finally:
+        client.close()
+    return out, ms, mib
+
+
+class TransferRun:
+    """One source pod (export service on 127.0.0.1) and the target pods
+    that pull from it, each on an engine of its own over shared weights."""
+
+    def __init__(self, pkg, dev, params, cfg, knobs):
+        self.serve, self.server = pkg["serve"], pkg["server"]
+        self.dev, self.params, self.cfg = dev, params, cfg
+        self.endpoint = f"tcp://127.0.0.1:{free_local_port()}"
+        self.engines = []
+        self.src = self.pod(knobs, transfer_endpoint=self.endpoint)
+        self.pods = [self.src]
+
+    def pod(self, knobs, cost_model=None, **config):
+        eng = transfer_engine(self.server, self.dev, self.params, self.cfg, knobs)
+        self.engines.append(eng)
+        pod = self.serve.PodServer(
+            self.serve.PodServerConfig(model_name=TRANSFER_MODEL, publish_events=False, **config),
+            engine=eng, transfer_cost_model=cost_model)
+        pod.start()
+        return pod
+
+    def target(self, knobs, cost_model=None, **config):
+        pod = self.pod(knobs, cost_model, **config)
+        self.pods.append(pod)
+        return pod
+
+    def close(self):
+        for pod in self.pods:
+            pod.shutdown()
+
+    def counts(self) -> tuple[dict, dict]:
+        """Prefill dispatches and decode model steps (warm-up included) by
+        KV page mode, summed over the run's engines."""
+        prefill, decode = {}, {}
+        for eng in self.engines:
+            mode = eng.config.kv_quant_hbm
+            prefill[mode] = prefill.get(mode, 0) + eng.prefill_stats["dispatches"]
+            decode[mode] = decode.get(mode, 0) + eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps
+        return prefill, decode
+
+
+def serve_each(pod, server, prompts, new_tokens=8, **kw) -> list:
+    """The prompts one after another (each alone in the engine, so each
+    TTFT is its own)."""
+    out = []
+    for p in prompts:
+        s = pod.submit(p, server.SamplingParams(max_new_tokens=new_tokens), **kw).result(timeout=600)
+        if s.error or len(s.generated_tokens) != new_tokens:
+            fail(f"kv transfer: request finished with {len(s.generated_tokens)} tokens, error={s.error}")
+        out.append(s)
+    return out
+
+
+def pull_each(pod, server, prompts, endpoint) -> tuple[list, list, list]:
+    """Each prompt pulled (``pull_prefix``), then served: the sequences,
+    the blocks each pull imported and its wall ms."""
+    seqs, imported, ms = [], [], []
+    for p in prompts:
+        t = time.perf_counter()
+        imported.append(pod.pull_prefix(p, endpoint))
+        ms.append((time.perf_counter() - t) * 1e3)
+        seqs += serve_each(pod, server, [p])
+    return seqs, imported, ms
+
+
+def ms_median(seqs) -> float:
+    return float(np.median([s.ttft * 1e3 for s in seqs]))
+
+
+def transfer_copies(stats_before: dict, stats_after: dict) -> dict:
+    return {k: stats_after[k] - stats_before[k] for k in stats_after}
+
+
+def kv_transfer(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """Cross-pod KV transfer at full width and depth on the 8B path's
+    parameters: four distinct 1024-token prompts (64 pages each), 8 new
+    tokens each. Gates, bf16: a pulled page is bit-equal to the source's;
+    the pulled request hits 1008 cached tokens, as the source's own warm
+    repeat does, and computes only its last 16; its greedy tokens equal
+    that repeat's. Int8 wire from a bf16 pool: the codes and scales on the
+    wire are plain torch's quantization of the source pages, the target's
+    pages are their dequantization, and first-token logits over them are
+    within the int8 bar of the source's. Int8 pages to int8 pages: codes
+    and scales bit-equal, tokens equal. Host-tier export: the bytes on the
+    wire are the host slots' bytes, and tokens equal the bf16 pull's.
+    ``ASYNC_PULL``: four pulls land, tokens equal the bf16 pull's. Exact
+    launch counts over the phase's engines."""
+    server, models = pkg["server"], pkg["models"]
+    from llm_d_kv_cache_manager_tpu_torch.kvcache import transfer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(4)]
+    # Eight more prompts, 520 pages: they push all of the four prompts'
+    # pages out of a 384-page pool into its host tier.
+    evictors = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(8)]
+    ps, n_pages = 16, 64
+    full = (1024 - 1) // ps  # the pages a pulled request hits (the last is recomputed)
+    shape = (cfg.n_layers, ps, cfg.n_kv_heads, cfg.hd)
+    sc_shape = (cfg.n_layers, 1, cfg.n_kv_heads, 1)
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    out = {"phase": "kv_transfer", "card": card, "prompts": 4, "prompt_tokens": 1024,
+           "blocks_per_pull": n_pages}
+    prefill, decode = {}, {}
+    extra_prefill = {None: 0}
+
+    def add_counts(run):
+        p, d = run.counts()
+        for mode, n in p.items():
+            prefill[mode] = prefill.get(mode, 0) + n
+        for mode, n in d.items():
+            decode[mode] = decode.get(mode, 0) + n
+
+    # -- bf16: the source, a blocking pull, an async pull --------------------
+    run = TransferRun(pkg, dev, params, cfg, {})
+    try:
+        src, src_eng = run.src, run.engines[0]
+        cold = serve_each(src, server, prompts)
+        cold_prefill_rate = src_eng._prefill_rate  # cold 1024-token prefills only
+        repeat = serve_each(src, server, prompts)
+        export_before = dict(src_eng.transfer_copy_stats)
+        blocks, fetch_ms, fetch_mib = fetch_blocks(transfer, run.endpoint, src_eng, prompts)
+        fetch_export = transfer_copies(export_before, src_eng.transfer_copy_stats)
+        # The fetch's msgpack halves, timed here on the fetched blocks.
+        t = time.perf_counter()
+        wire = transfer.encode_response(blocks[-1], True)
+        pack_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        transfer.decode_response(wire)
+        unpack_ms = (time.perf_counter() - t) * 1e3
+        del wire
+        before = dict(src_eng.transfer_copy_stats)
+        cost = transfer.TransferCostModel(transfer.TransferCostModelConfig(
+            block_bytes=src_eng.kv_block_bytes, block_size=ps, max_pull_blocks=n_pages))
+        tgt = run.target({}, cost_model=cost)
+        tgt_eng = run.engines[-1]
+        pulled, imported, pull_ms = pull_each(tgt, server, prompts, run.endpoint)
+        export = transfer_copies(before, src_eng.transfer_copy_stats)
+        if imported != [n_pages] * 4:
+            fail(f"kv transfer: pulls imported {imported} blocks, want {n_pages} each")
+        if [s.num_cached_prompt for s in pulled] != [s.num_cached_prompt for s in repeat] or \
+                pulled[0].num_cached_prompt != full * ps:
+            fail(f"kv transfer: pulled requests cached {[s.num_cached_prompt for s in pulled]}, the "
+                 f"source's repeats {[s.num_cached_prompt for s in repeat]}")
+        if tgt_eng.prefill_stats["tokens_computed"] != 4 * (1024 - full * ps):
+            fail(f"kv transfer: the target computed {tgt_eng.prefill_stats['tokens_computed']} tokens")
+        torch.cuda.synchronize()
+        unequal = sum(int(not torch.equal(a, b)) for a, b in zip(
+            chain_pages(tgt_eng, prompts, n_pages), chain_pages(src_eng, prompts, n_pages)))
+        if unequal:
+            fail(f"kv transfer: {unequal} pools of pulled pages differ from the source's")
+        tokens = [list(s.generated_tokens) for s in pulled]
+        if tokens != [list(s.generated_tokens) for s in repeat]:
+            fail("kv transfer: pulled greedy tokens differ from the source's warm repeat")
+        # Device-side copies of the import: one flush per pulled prefill.
+        tgt_eng._harvest_copy_spans()
+        imp = tgt_eng.transfer_copy_stats
+        h2d_gb_s = imp["import_bytes"] / imp["import_h2d_s"] / 1e9 if imp["import_h2d_s"] else None
+        # The cost model as the target pod fed it (link samples of its
+        # pulls; the prefill rate of its own warm 16-token prefills), and
+        # with the source's cold-prefill rate in its place.
+        cold_cost = transfer.TransferCostModel(cost.config)
+        cold_cost.seed_rates(cost.transfer_rate, cold_prefill_rate)
+        verdicts = {}
+        for label, model in (("target_fed", cost), ("cold_prefill_rate", cold_cost)):
+            verdicts[label] = {
+                "transfer_bytes_s": model.transfer_rate, "prefill_tokens_s": model.prefill_rate,
+                **{f"warm_load_{load}": model.decide(1024, n_pages, load, 0) for load in (0, 1, 4)},
+            }
+        # The same pulls with ASYNC_PULL, all four submitted at once.
+        atgt = run.target({}, async_pull=True)
+        futures = [atgt.submit(p, server.SamplingParams(max_new_tokens=8), pull_source=run.endpoint)
+                   for p in prompts]
+        async_seqs = [f.result(timeout=600) for f in futures]
+        if atgt.async_pulls != 4 or atgt.async_pull_fallbacks:
+            fail(f"kv transfer: async_pulls={atgt.async_pulls}, fallbacks={atgt.async_pull_fallbacks}")
+        if [list(s.generated_tokens) for s in async_seqs] != tokens:
+            fail("kv transfer: async-pulled greedy tokens differ from the blocking pull's")
+        if [s.num_cached_prompt for s in async_seqs] != [full * ps] * 4:
+            fail(f"kv transfer: async pulls cached {[s.num_cached_prompt for s in async_seqs]}")
+        out["bf16"] = {
+            "wire_mib_per_pull": fetch_mib,
+            "fetch_wall_ms": fetch_ms,
+            # one fetch of the last three (socket dialled): the source's
+            # export, msgpack encode and decode of the response, the rest
+            # (the hops onto the engine loop, ZMQ over loopback, payload
+            # objects)
+            "fetch_split_ms": {
+                "export": sum(fetch_export[f"export_{k}_s"] for k in ("gather", "d2h", "encode"))
+                * 1e3 / fetch_export["exports"],
+                "msgpack_encode": pack_ms, "msgpack_decode": unpack_ms,
+                "fetch_wall_median": float(np.median(fetch_ms[1:])),
+            },
+            "pull_wall_ms": pull_ms,
+            "export_per_pull_ms": {k: export[f"export_{k}_s"] * 1e3 / export["exports"]
+                                   for k in ("gather", "d2h", "encode")},
+            "export_d2h_gb_s": export["export_bytes"] / export["export_d2h_s"] / 1e9,
+            "import": {"pages": imp["import_pages"], "bytes": imp["import_bytes"],
+                       "pack_ms": imp["import_pack_s"] * 1e3, "h2d_device_ms": imp["import_h2d_s"] * 1e3,
+                       "h2d_gb_s": h2d_gb_s, "bound_gb_s": PCIE_BYTES_S / 1e9,
+                       # one pull's bytes in one plain copy
+                       "plain_pinned_copy_gb_s": pinned_copy_gb_s(imp["import_bytes"] // 4, to_host=False),
+                       "flushes": tgt_eng.host_copy_stats["flushes"],
+                       "flush_host_ms_each": tgt_eng.host_copy_stats["flush_host_s"] * 1e3
+                       / max(tgt_eng.host_copy_stats["flushes"], 1),
+                       "wait_ms": tgt_eng.host_copy_stats["wait_s"] * 1e3},
+            "ttft_ms": {"cold_on_source": [s.ttft * 1e3 for s in cold],
+                        "warm_repeat_on_source": [s.ttft * 1e3 for s in repeat],
+                        "pulled_on_target": [s.ttft * 1e3 for s in pulled],
+                        "async_pulled_from_submit": [s.ttft * 1e3 for s in async_seqs]},
+            "ttft_ms_median": {"cold": ms_median(cold), "warm_repeat": ms_median(repeat),
+                               "pulled": ms_median(pulled),
+                               "pull_plus_ttft": float(np.median([a + s.ttft * 1e3
+                                                                  for a, s in zip(pull_ms, pulled)]))},
+            "cached_prompt_tokens": [s.num_cached_prompt for s in pulled],
+            "target_tokens_computed": tgt_eng.prefill_stats["tokens_computed"],
+            "cost_model_decide_1024_tokens_64_blocks": verdicts,
+            "async_pulls": atgt.async_pulls,
+            "transfer_stats": {"source": dict(src_eng.transfer_stats),
+                               "target": dict(tgt_eng.transfer_stats)},
+        }
+    finally:
+        run.close()
+    add_counts(run)
+    del run
+    free_cuda()
+
+    # -- an int8 wire from a bf16 pool --------------------------------------
+    run = TransferRun(pkg, dev, params, cfg, {"kv_quant": "int8"})
+    try:
+        src_eng = run.engines[0]
+        serve_each(run.src, server, prompts)
+        blocks, fetch_ms, fetch_mib = fetch_blocks(transfer, run.endpoint, src_eng, prompts)
+        torch.cuda.synchronize()
+        src_k, src_v = chain_pages(src_eng, prompts, n_pages)
+        codes_unequal = 0
+        for pool, (cf, sf) in ((src_k, ("k_data", "k_scale")), (src_v, ("v_data", "v_scale"))):
+            q, scale = plain_int8_codes(pool)
+            flat = [b for bs in blocks for b in bs]
+            codes_unequal += int(not torch.equal(wire_tensor(flat, cf, torch.int8, shape, dev), q.transpose(0, 1)))
+            codes_unequal += int(not torch.equal(wire_tensor(flat, sf, torch.float32, sc_shape, dev),
+                                                 scale.transpose(0, 1)))
+        if codes_unequal:
+            fail(f"kv transfer: {codes_unequal} int8 wire fields differ from plain torch's quantization")
+        tgt = run.target({})
+        tgt_eng = run.engines[-1]
+        pulled, imported, pull_ms = pull_each(tgt, server, prompts, run.endpoint)
+        torch.cuda.synchronize()
+        tgt_eng._harvest_copy_spans()
+        pages_unequal = sum(int(not torch.equal(a, plain_int8_round_trip(b))) for a, b in zip(
+            chain_pages(tgt_eng, prompts, n_pages), (src_k, src_v)))
+        if pages_unequal:
+            fail(f"kv transfer: {pages_unequal} pools of pages imported from an int8 wire are not the "
+                 f"dequantized codes")
+        logits = []
+        for p in prompts:
+            a = last_page_logits(models, tgt_eng, cfg, p, dev)
+            b = last_page_logits(models, src_eng, cfg, p, dev)
+            logits.append({"max_abs_diff": float((a - b).abs().max()),
+                           "bar": INT8_LOGITS_BAR * float(b.abs().max()),
+                           "argmax_equal": int(a.argmax()) == int(b.argmax())})
+        extra_prefill[None] += 2 * len(prompts)
+        if any(x["max_abs_diff"] > x["bar"] for x in logits):
+            fail(f"kv transfer: first-token logits over int8-wire pages miss the bar: {logits}")
+        int8_tokens = [list(s.generated_tokens) for s in pulled]
+        share = sum(a == b for x, y in zip(int8_tokens, tokens) for a, b in zip(x, y)) / (8 * len(prompts))
+        out["int8_wire"] = {
+            "wire_mib_per_pull": fetch_mib, "fetch_wall_ms": fetch_ms, "pull_wall_ms": pull_ms,
+            "imported": imported, "first_token_logits": logits,
+            "greedy_token_share_equal_to_bf16": share,
+            "ttft_ms_median_pulled": ms_median(pulled),
+            "import_h2d_gb_s": tgt_eng.transfer_copy_stats["import_bytes"]
+            / max(tgt_eng.transfer_copy_stats["import_h2d_s"], 1e-12) / 1e9,
+        }
+    finally:
+        run.close()
+    add_counts(run)
+    del run
+    free_cuda()
+
+    # -- int8 pages to int8 pages ---------------------------------------------
+    run = TransferRun(pkg, dev, params, cfg, {"kv_quant_hbm": "int8"})
+    try:
+        src_eng = run.engines[0]
+        serve_each(run.src, server, prompts)
+        repeat = serve_each(run.src, server, prompts)
+        tgt = run.target({"kv_quant_hbm": "int8"})
+        tgt_eng = run.engines[-1]
+        pulled, imported, pull_ms = pull_each(tgt, server, prompts, run.endpoint)
+        torch.cuda.synchronize()
+        unequal = sum(int(not torch.equal(a, b)) for a, b in zip(
+            chain_pages(tgt_eng, prompts, n_pages), chain_pages(src_eng, prompts, n_pages)))
+        if unequal or imported != [n_pages] * 4:
+            fail(f"kv transfer int8 pages: {unequal} pools differ, imported {imported}")
+        if [list(s.generated_tokens) for s in pulled] != [list(s.generated_tokens) for s in repeat]:
+            fail("kv transfer int8 pages: pulled greedy tokens differ from the source's warm repeat")
+        out["int8_pages"] = {"pull_wall_ms": pull_ms, "imported": imported,
+                             "ttft_ms_median_pulled": ms_median(pulled),
+                             "ttft_ms_median_warm_repeat": ms_median(repeat),
+                             "wire_bytes_per_pull_mib": n_pages * src_eng.kv_block_bytes / 2**20}
+    finally:
+        run.close()
+    add_counts(run)
+    del run
+    free_cuda()
+
+    # -- a host-tier export -----------------------------------------------------
+    run = TransferRun(pkg, dev, params, cfg, {"total_pages": 384, "host_pages": 1024,
+                                              "host_tier_policy": "always"})
+    try:
+        src_eng = run.engines[0]
+        serve_each(run.src, server, prompts)
+        serve_each(run.src, server, evictors)  # spills the prompts' pages to the host
+        tiers = [t for p in prompts for _, _, t, _ in
+                 src_eng.block_manager.lookup_chain(src_eng.block_manager.token_db.prefix_hashes(p))]
+        blocks, fetch_ms, fetch_mib = fetch_blocks(transfer, run.endpoint, src_eng, prompts)
+        bm = src_eng.block_manager
+        slot_unequal, from_slots = 0, 0
+        for b in (b for bs in blocks for b in bs):
+            slot = bm._host_cached.get(b.block_hash)
+            if slot is None:
+                continue
+            from_slots += 1
+            k, v = (t[slot].view(torch.int16).numpy().tobytes() for t in (src_eng._host_k, src_eng._host_v))
+            slot_unequal += int(b.k_data != k or b.v_data != v)
+        if from_slots != 4 * n_pages or slot_unequal:
+            fail(f"kv transfer host tier: {from_slots} blocks served from slots, {slot_unequal} differ")
+        tgt = run.target({})
+        pulled, imported, pull_ms = pull_each(tgt, server, prompts, run.endpoint)
+        if [list(s.generated_tokens) for s in pulled] != tokens:
+            fail("kv transfer host tier: pulled greedy tokens differ from the bf16 pull's")
+        out["host_tier_export"] = {"source_tiers": {t: tiers.count(t) for t in set(tiers)},
+                                   "blocks_from_slots": from_slots, "fetch_wall_ms": fetch_ms,
+                                   "wire_mib_per_pull": fetch_mib, "pull_wall_ms": pull_ms,
+                                   "imported": imported}
+    finally:
+        run.close()
+    add_counts(run)
+    del run
+    free_cuda()
+
+    expected = dict.fromkeys(ops.COUNTED, 0)
+    for mode in set(prefill) | set(decode):
+        exp = expected_launches(cfg, None, mode, prefill.get(mode, 0) + extra_prefill.get(mode, 0),
+                                decode.get(mode, 0))
+        expected = {name: expected[name] + n for name, n in exp.items()}
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    if launches != expected:
+        fail(f"kv transfer: kernel launches {launches} != expected {expected}")
+    for name in ("flash_prefill", "paged_decode", "paged_decode_int8"):
+        if launches[name] == 0:
+            fail(f"kv transfer: {name} was not launched")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
 
 
 def sync_free_decode_steps(models, ops, eng, cfg, prompts, ps, dev) -> dict:

@@ -173,10 +173,14 @@ def quantize_kv_page(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantize a KV page ``[..., n_layers, page_size, n_kv_heads, hd]``
     (leading dims: a batch of pages) to int8 with per-(layer, kv head)
     symmetric f32 scales ``[..., n_layers, 1, n_kv_heads, 1]``. Error per
-    element is at most ``scale / 2``; zeros round-trip exactly."""
+    element is at most ``scale / 2``; zeros round-trip exactly. Codes and
+    scales equal the JAX package's numpy ones on every device: 127 is a
+    tensor divisor, because CUDA divides by a Python scalar as a product
+    with its float32 reciprocal, which can miss the true quotient by an
+    ulp."""
     x32 = x.float()
     amax = x32.abs().amax(dim=(-3, -1), keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -17,10 +17,12 @@ N+1 dispatched before burst N commits, with the JAX engine's drain rules),
 and the host-DRAM tier (``BlockManagerConfig.host_pages``,
 ``host_tier_policy``, ``kv_quant``, ``host_prefetch``: evicted pages spill
 to a pinned host slot pool, prefix hits restore them, gated by the
-recompute-vs-restore cost model; see "Host-DRAM tier" below). The other
-knob-gated features of the JAX engine — the remote tier and integrity
-digests, transfer, speculative decoding, TP/SP — are not ported yet, and
-their config fields do not exist here.
+recompute-vs-restore cost model; see "Host-DRAM tier" below), and
+cross-pod KV transfer (``kv_block_bytes``, ``export_kv_blocks``,
+``import_kv_blocks``; see "KV transfer" below). The other knob-gated
+features of the JAX engine — the remote tier and integrity digests,
+speculative decoding, TP/SP — are not ported yet, and their config fields
+do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -59,6 +61,24 @@ queue time) without copying it then. A host read of a slot waits on the
 last flush's event (``_wait_host_copies``). The JAX engine's demotion and
 integrity branches of the flush (``_pending_demotions``, ``integrity``) are
 the remote tier's and are not ported.
+
+KV transfer. ``export_kv_blocks`` serves a peer's prefix fetch: it flushes
+the queued moves, walks the chain, gathers its device pages once on the
+compute stream (quantized there when the wire is int8 and the pools are
+full-width), copies them into pinned staging on the copy stream and waits
+once; host-tier blocks are read from the slots after
+``_wait_host_copies``. ``import_kv_blocks`` checks each block as the JAX
+engine does and queues a restore whose source is the block's bytes in
+memory: ``("data", k, v)`` full-width or ``("qdata", k codes, v codes,
+k scales, v scales)``. The flush packs every such source into one pinned
+buffer per pool, copies it to the device on the copy stream, and the
+compute stream waits on that copy before the in-place ``index_copy_``;
+int8 pools quantize full-width pages on the device, full-width pools
+dequantize codes there (``code * scale`` in float32, the JAX engine's
+host arithmetic). Page bytes cross the wire in the JAX package's layout
+and dtype names (bf16 through its ``int16`` view: numpy has no bfloat16
+here). The remote-store and integrity branches of both (``remote_store``,
+``integrity``) belong to the remote tier and are not ported.
 """
 
 from __future__ import annotations
@@ -102,6 +122,38 @@ def _runs(keys: list[int]) -> list[tuple[int, int, int]]:
         else:
             out.append((key, i, 1))
     return out
+
+
+#: the page dtypes' names on the transfer wire: numpy's, as the JAX engine
+#: writes them (``str(np.dtype(jnp.bfloat16))`` is ``"bfloat16"``)
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
+
+
+def _wire_dtype_matches(name, dtype: torch.dtype) -> bool:
+    """Whether a payload's ``dtype`` names ``dtype``, as the JAX engine's
+    ``np.dtype(name) == np_dtype`` decides, with bfloat16 matched by its
+    name (numpy knows it only through ml_dtypes, which this process may
+    lack)."""
+    want = _WIRE_DTYPES.get(dtype)
+    if want is None or "bfloat16" in (want, name):
+        return name == want
+    try:
+        return np.dtype(name) == np.dtype(want)
+    except (TypeError, ValueError):
+        return False
+
+
+def _tensor_bytes(t: torch.Tensor) -> bytes:
+    """C-order bytes of a host tensor (bf16 through its ``int16`` view)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
+def _tensor_from_bytes(data: bytes, dtype: torch.dtype, shape: tuple) -> torch.Tensor:
+    """A host tensor holding a copy of ``data`` (the payload's ``bytes``
+    are read-only)."""
+    return torch.frombuffer(bytearray(data), dtype=dtype).reshape(shape)
 
 
 class _Span:
@@ -334,6 +386,23 @@ class Engine:
         #: prefill observability: tokens actually pushed through prefill
         #: dispatches (prefix-cache hits reduce it) and dispatch count.
         self.prefill_stats = {"tokens_computed": 0, "dispatches": 0}
+        #: cross-pod KV transfer: the JAX engine's counters
+        self.transfer_stats = {
+            "exported_blocks": 0,
+            "imported_blocks": 0,
+            "import_rejected": 0,
+        }
+        #: transfer copies: exports and the pages they read from the device,
+        #: the device seconds of their gather (compute stream) and of their
+        #: copy to pinned memory (copy stream), the host seconds of encoding
+        #: payloads; imported pages the flushes moved, their bytes, the host
+        #: seconds of packing them into pinned staging and the device
+        #: seconds of their copy to the device
+        self.transfer_copy_stats = {
+            "exports": 0, "export_pages": 0, "export_bytes": 0,
+            "export_gather_s": 0.0, "export_d2h_s": 0.0, "export_encode_s": 0.0,
+            "import_pages": 0, "import_bytes": 0, "import_pack_s": 0.0, "import_h2d_s": 0.0,
+        }
         #: decode dispatches (a mixed step makes one prefill and one decode
         #: dispatch, so engine steps do not count them) and the model steps
         #: they ran (``decode_steps_per_iter`` a dispatch)
@@ -414,11 +483,16 @@ class Engine:
             "d2h_pages": 0, "d2h_bytes": 0, "d2h_s": 0.0,
             "h2d_pages": 0, "h2d_bytes": 0, "h2d_s": 0.0, "wait_s": 0.0,
         }
-        self._copy_stream: Optional[torch.cuda.Stream] = None
+        #: pinned staging of imported pages with the span of their copy to
+        #: the device: kept referenced until that copy has passed
+        self._import_staging: list = []
+        cuda = self.device.type == "cuda"
+        #: the tier's and the transfer's page copies run here, off the
+        #: compute stream
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
         hp = config.block_manager.host_pages
         if hp == 0:
             return
-        cuda = self.device.type == "cuda"
         slot_shape = (hp, cfg.n_layers, ps, cfg.n_kv_heads, cfg.hd)
         dtype = torch.int8 if self._host_int8 else cfg.dtype
         self._host_k = torch.zeros(slot_shape, dtype=dtype, pin_memory=cuda)
@@ -427,8 +501,6 @@ class Engine:
             sc_shape = (hp,) + quant.kv_scale_shape(slot_shape[1:])
             self._host_k_scale = torch.zeros(sc_shape, dtype=torch.float32, pin_memory=cuda)
             self._host_v_scale = torch.zeros(sc_shape, dtype=torch.float32, pin_memory=cuda)
-        if cuda:
-            self._copy_stream = torch.cuda.Stream(self.device)
         auto = config.host_tier_policy == "auto"
         self.block_manager.attach_host_pool(
             self._offload_page,
@@ -566,6 +638,8 @@ class Engine:
                 self._offload_rate = self._ema(self._offload_rate, n / max(seconds, 1e-6))
             elif kind == "restore":
                 self._restore_rate = self._ema(self._restore_rate, n / max(seconds, 1e-6))
+            elif kind == "import_h2d":
+                self.transfer_copy_stats["import_h2d_s"] += seconds
             else:
                 self.host_copy_stats[f"{kind}_s"] += seconds
 
@@ -675,6 +749,73 @@ class Engine:
         self._spans.append(("d2h", len(slots), span))
         self._spans.append(("offload", len(slots), span.since(gather)))
 
+    @staticmethod
+    def _source_key(src: tuple):
+        """A queued move's source as a dict key: a page or a slot by its
+        number, an imported block's bytes by the identity of its tuple (one
+        object, shared by the restore and any offload that reads it)."""
+        return ("memory", id(src)) if src[0] in ("data", "qdata") else src
+
+    def _stage_imports(self, sources: list[tuple]) -> list[tuple]:
+        """Start the host-to-device copy of imported blocks' bytes: each
+        kind's pages packed into one pinned staging buffer per pool and
+        copied on the copy stream. Returns ``(kind, sources, device rows,
+        span)`` per kind; the staging stays referenced until the span has
+        passed (a pinned buffer reused under its copy would corrupt pages)."""
+        stream = self._copy_stream
+        cuda = stream is not None
+        self._import_staging = [(s, b) for s, b in self._import_staging if s.seconds() is None]
+        out = []
+        for kind in ("data", "qdata"):
+            srcs = [src for src in sources if src[0] == kind]
+            if not srcs:
+                continue
+            t0 = time.perf_counter()
+            staging = []
+            for j in range(1, len(srcs[0])):
+                first = srcs[0][j]
+                buf = torch.empty((len(srcs),) + tuple(first.shape), dtype=first.dtype,
+                                  pin_memory=cuda)
+                torch.stack([src[j] for src in srcs], out=buf)
+                staging.append(buf)
+            self.transfer_copy_stats["import_pack_s"] += time.perf_counter() - t0
+            with self._on_copy_stream():
+                rows = [torch.empty(b.shape, dtype=b.dtype, device=self.device) for b in staging]
+                span = _Span(stream)
+                for row, buf in zip(rows, staging):
+                    row.copy_(buf, non_blocking=True)
+                span.end(stream)
+            if cuda:
+                # Made on the copy stream, read on the compute stream.
+                for row in rows:
+                    row.record_stream(self._compute_stream())
+            self._import_staging.append((span, staging))
+            n_bytes = sum(b.numel() * b.element_size() for b in staging)
+            self.transfer_copy_stats["import_pages"] += len(srcs)
+            self.transfer_copy_stats["import_bytes"] += n_bytes
+            self._spans.append(("import_h2d", len(srcs), span))
+            out.append((kind, srcs, rows, span))
+        return out
+
+    def _import_to_pool_form(self, kind: str, rows: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Imported pages ``[n, ...]`` (``"data"``: K and V full-width;
+        ``"qdata"``: int8 codes and their ``[n, L, 1, n_kv, 1]`` scales) as
+        the device pools hold them: an int8 pool quantizes full-width pages
+        and takes codes as they are; a full-width pool dequantizes codes, as
+        the JAX engine does on the host."""
+        if self.k_scales is not None:
+            if kind == "data":
+                (kq, ks), (vq, vs) = (quant.quantize_kv_page(r) for r in rows)
+                rows = [kq, vq, ks, vs]
+            k, v, ks, vs = rows
+            n, n_layers = k.shape[:2]
+            return [k, v, ks.reshape(n, n_layers, -1), vs.reshape(n, n_layers, -1)]
+        if kind == "qdata":
+            dtype = self.model_cfg.dtype
+            return [quant.dequantize_kv_page(rows[0], rows[2], dtype),
+                    quant.dequantize_kv_page(rows[1], rows[3], dtype)]
+        return rows
+
     def _flush_page_moves(self) -> None:
         """Run the queued page moves before the next dispatch (the module
         docstring has the plan). Restores are deduplicated by destination
@@ -687,34 +828,44 @@ class Engine:
         t_host = time.perf_counter()
         self._harvest_copy_spans()
         compute = self._compute_stream()
+        key = self._source_key
         offloads = dict(self._pending_offloads)  # slot -> source
         restores = dict(self._pending_restores)  # page -> source
         sources = list(offloads.values()) + list(restores.values())
         pages = list(dict.fromkeys(src[1] for src in sources if src[0] == "page"))
+        imported = list({key(src): src for src in sources if src[0] in ("data", "qdata")}.values())
         gather = _Span(compute) if offloads else None
         restore_span = _Span(compute) if restores else None
         self._stage_host_reads()
+        staged_imports = self._stage_imports(imported)
         # Every source's pages in the pools' form: the gathered device pages
-        # (read before any restore below writes a page), then the slots.
+        # (read before any restore below writes a page), the slots, then
+        # the imported blocks.
         parts, row_of = [], {}
         if pages:
             parts.append(self._gather_pages(pages))
             row_of.update({("page", p): i for i, p in enumerate(pages)})
-        if self._stage_batches:
+        copies = [span for _, span in self._stage_batches] + [s[3] for s in staged_imports]
+        if copies:
             wait = _Span(compute)
             if compute is not None:
-                for _, span in self._stage_batches:
+                for span in copies:
                     compute.wait_event(span.stop)
             self._spans.append(("wait", None, wait.end(compute)))
+        if self._stage_batches:
             batches = [rows for rows, _ in self._stage_batches]
             starts = list(itertools.accumulate([len(pages)] + [len(b[0]) for b in batches]))
             row_of.update({("slot", s): starts[b] + i for s, (b, i) in self._staged.items()})
             host_rows = batches[0] if len(batches) == 1 else [torch.cat(c) for c in zip(*batches)]
             parts.append(self._to_pool_form(host_rows))
+        for kind, srcs, rows, _ in staged_imports:
+            start = sum(len(part[0]) for part in parts)
+            row_of.update({key(src): start + i for i, src in enumerate(srcs)})
+            parts.append(self._import_to_pool_form(kind, rows))
         pool_rows = parts[0] if len(parts) == 1 else [torch.cat(c) for c in zip(*parts)]
 
         def select(srcs) -> list[torch.Tensor]:
-            idx = self._index([row_of[src] for src in srcs])
+            idx = self._index([row_of[key(src)] for src in srcs])
             return [t.index_select(0, idx) for t in pool_rows]
 
         if restores:
@@ -743,6 +894,182 @@ class Engine:
         idx = self._index(pages)
         return [pool.index_select(1, idx).transpose(0, 1).contiguous()
                 for pool in self._device_pools()]
+
+    # -- cross-pod KV transfer (kvcache/transfer) ---------------------------
+    @property
+    def kv_block_bytes(self) -> int:
+        """Wire bytes of one transferred block (K and V page slices): the
+        ``block_bytes`` of the router's transfer cost model. An int8 wire
+        (``kv_quant`` or ``kv_quant_hbm``) ships codes plus f32 scales."""
+        cfg = self.model_cfg
+        elems = cfg.n_layers * self.page_size * cfg.n_kv_heads * cfg.hd
+        if self._host_int8:
+            return 2 * (elems + cfg.n_layers * cfg.n_kv_heads * 4)
+        return 2 * elems * cfg.dtype.itemsize
+
+    def _export_device_pages(self, pages: list[int]) -> list[torch.Tensor]:
+        """Device pages in the wire's form on the host, ``[n, ...]`` each:
+        one gather on the compute stream (quantized there for an int8 wire
+        from full-width pools; int8 pools' scales as ``[n, L, 1, n_kv, 1]``),
+        one copy into pinned staging on the copy stream, one wait."""
+        compute, stream = self._compute_stream(), self._copy_stream
+        stats = self.transfer_copy_stats
+        gather = _Span(compute)
+        rows = self._to_host_form(self._gather_pages(pages))
+        gather.end(compute)
+        staging = [torch.empty(r.shape, dtype=r.dtype, pin_memory=stream is not None)
+                   for r in rows]
+        if stream is not None:
+            stream.wait_stream(compute)
+        with self._on_copy_stream():
+            d2h = _Span(stream)
+            for buf, row in zip(staging, rows):
+                buf.copy_(row, non_blocking=True)
+            d2h.end(stream)
+        if stream is not None:
+            # Made on the compute stream, read on the copy stream.
+            for row in rows:
+                row.record_stream(stream)
+        d2h.wait()
+        stats["export_gather_s"] += gather.seconds()
+        stats["export_d2h_s"] += d2h.seconds()
+        stats["export_pages"] += len(pages)
+        stats["export_bytes"] += sum(b.numel() * b.element_size() for b in staging)
+        return staging
+
+    def export_kv_blocks(self, hashes: list, max_blocks: Optional[int] = None):
+        """Serve a peer's prefix fetch: the longest consecutive resident run
+        of ``hashes`` as ``BlockPayload``s, from device pages (one gather)
+        and host slots. Engine thread only: it flushes the queued page moves
+        first, so the bytes are committed state."""
+        from ..kvcache.transfer.protocol import BlockPayload
+
+        self._flush_page_moves()
+        chain = self.block_manager.lookup_chain(hashes, max_blocks)
+        if not chain:
+            return []
+        cfg = self.model_cfg
+        shape = (cfg.n_layers, self.page_size, cfg.n_kv_heads, cfg.hd)
+        device = [(i, idx) for i, (_, _, tier, idx) in enumerate(chain) if tier == "tpu_hbm"]
+        row_of = {i: j for j, (i, _) in enumerate(device)}
+        rows = self._export_device_pages([p for _, p in device]) if device else []
+        if len(device) < len(chain):
+            self._wait_host_copies()  # a copy into a slot may still be landing
+        t_encode = time.perf_counter()
+        blocks = []
+        for i, (h, info, tier, idx) in enumerate(chain):
+            if tier == "tpu_hbm":
+                data = [r[row_of[i]] for r in rows]
+            else:
+                data = [pool[idx] for pool in self._host_pools()]
+            extra = {}
+            if self._host_int8:
+                # An int8 wire: codes, with the scales in the slots' layout;
+                # dtype and shape stay the logical page's.
+                extra = {"quant": "int8", "k_scale": _tensor_bytes(data[2]),
+                         "v_scale": _tensor_bytes(data[3])}
+            blocks.append(BlockPayload(
+                block_hash=h,
+                parent_block_hash=info.parent_hash,
+                token_ids=list(info.token_ids),
+                block_size=self.page_size,
+                dtype=_WIRE_DTYPES[cfg.dtype],
+                shape=shape,
+                k_data=_tensor_bytes(data[0]),
+                v_data=_tensor_bytes(data[1]),
+                **extra,
+            ))
+        self.transfer_copy_stats["export_encode_s"] += time.perf_counter() - t_encode
+        self.transfer_copy_stats["exports"] += 1
+        self.transfer_stats["exported_blocks"] += len(blocks)
+        return blocks
+
+    def import_kv_blocks(self, blocks, allow_evict: bool = False, source_pod: str = "") -> int:
+        """Install fetched prefix blocks as committed prefix-cache pages,
+        with the JAX engine's checks in its order: geometry and payload
+        length, already resident (skipped), parent gap, the chain hash of
+        the carried tokens, a free page. The first failure stops the import
+        (a block behind it can never prefix-hit). Each installed block
+        queues a restore from its bytes, which lands before the next
+        dispatch; ``BlockStored`` events flush at the end. Returns the
+        blocks installed. Engine thread only.
+
+        ``allow_evict``: recycle evictable pages to make room (the remote
+        tier's import rule; by default only free pages are used).
+        ``source_pod``: where the bytes came from, named in the log of a
+        rejection."""
+        from ..kvcache.kvblock.token_processor import hash_block
+
+        cfg = self.model_cfg
+        ps = self.page_size
+        shape = (cfg.n_layers, ps, cfg.n_kv_heads, cfg.hd)
+        sc_shape = quant.kv_scale_shape(shape)
+        elems = math.prod(shape)
+        page_bytes = elems * cfg.dtype.itemsize
+        scale_bytes = math.prod(sc_shape) * 4
+        bm = self.block_manager
+        installed = 0
+        for blk in blocks:
+            quantized = blk.quant is not None
+            if quantized:
+                payload_ok = (
+                    blk.quant == "int8"
+                    and len(blk.k_data) == elems
+                    and len(blk.v_data) == elems
+                    and len(blk.k_scale) == scale_bytes
+                    and len(blk.v_scale) == scale_bytes
+                )
+            else:
+                payload_ok = len(blk.k_data) == page_bytes and len(blk.v_data) == page_bytes
+            if (
+                blk.block_size != ps
+                or tuple(blk.shape) != shape
+                or not _wire_dtype_matches(blk.dtype, cfg.dtype)
+                or len(blk.token_ids) != ps
+                or not payload_ok
+            ):
+                self.transfer_stats["import_rejected"] += 1
+                log.warning("imported block has the wrong geometry; import stopped",
+                            source=source_pod or "<unknown>")
+                break
+            h = blk.block_hash
+            if bm.is_block_resident(h):
+                continue  # the local copy wins; the chain stays continuous
+            parent = blk.parent_block_hash
+            if parent is not None and not bm.is_block_resident(parent):
+                self.transfer_stats["import_rejected"] += 1
+                break  # a chain gap: unreachable by any prefix walk
+            chain_parent = parent if parent is not None else bm.token_db.init_hash
+            if hash_block(chain_parent, blk.token_ids) != h:
+                # The prefix cache's truth is the hash chain: never register
+                # a block this engine would not hash so itself.
+                self.transfer_stats["import_rejected"] += 1
+                log.warning("imported block's chain hash does not match its tokens; import "
+                            "stopped", source=source_pod or "<unknown>")
+                break
+            try:
+                page = bm.install_imported_block(h, parent, blk.token_ids, allow_evict=allow_evict)
+            except AllocationError:
+                break  # pool full: keep what landed
+            if page is None:
+                continue
+            if quantized:
+                src = ("qdata",
+                       _tensor_from_bytes(blk.k_data, torch.int8, shape),
+                       _tensor_from_bytes(blk.v_data, torch.int8, shape),
+                       _tensor_from_bytes(blk.k_scale, torch.float32, sc_shape),
+                       _tensor_from_bytes(blk.v_scale, torch.float32, sc_shape))
+            else:
+                src = ("data",
+                       _tensor_from_bytes(blk.k_data, cfg.dtype, shape),
+                       _tensor_from_bytes(blk.v_data, cfg.dtype, shape))
+            self._pending_restores.append((page, src))
+            self._restore_by_page[page] = src
+            installed += 1
+        if installed:
+            self.transfer_stats["imported_blocks"] += installed
+            bm.flush_events()
+        return installed
 
     def add_request(
         self,

@@ -31,6 +31,12 @@ COPIES = [
     "server/sequence.py",
     "server/block_manager.py",
     "server/scheduler.py",
+    "kvcache/transfer/protocol.py",
+    "kvcache/transfer/client.py",
+    "kvcache/transfer/service.py",
+    "kvcache/transfer/cost_model.py",
+    "kvcache/metrics/collector.py",
+    "obs/lifecycle.py",
 ]
 
 #: Original text the copy leaves out, per file (exact, in order).
