@@ -30,7 +30,13 @@ them into target pods over loopback ZMQ (``pull_prefix`` and
 pulled pages are held against the source's, greedy tokens against the
 source's warm repeat, and the wire, export, fetch and import times and the
 import's GB/s are reported beside TTFTs and the transfer cost model's
-verdict.
+verdict. The ``scoring`` phase, on the same parameters, runs the port's
+scoring service in process and routes two pods that publish to it over
+ZMQ: repeats go to the pod that served them and hit its prefix cache,
+scores follow a pod's evictions, and a simulated fleet of 16 pods × 16,384
+blocks is ingested losslessly while score requests are timed under four
+index configurations. The int8 KV path also holds both int8 scale
+divisions on the card bit-equal to the CPU.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -699,7 +705,7 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 #: prefill/decode steps).
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
-         fast_path=True, host_tier=True, kv_transfer=True),
+         fast_path=True, host_tier=True, kv_transfer=True, scoring=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
          fast_path=True),
@@ -990,6 +996,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
             a == b for a, b in zip(greedy_tokens[same], greedy_tokens[path["label"]]))
     if kv_quant_hbm:
         extra["sync_free_decode_steps"] = sync_free_decode_steps(models, ops, eng, cfg, prompts, ps, dev)
+        extra["int8_division_card_vs_cpu"] = division_checks(pkg["llama"], eng, cfg, prompts[0], ps, dev)
 
     logits = warm_vs_cold(models, pkg["llama"], eng.params, cfg, prompts[0], ps, dev, kv_quant_hbm)
 
@@ -1046,6 +1053,10 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
     if path.get("kv_transfer"):
         label = path["label"] + "_kv_transfer"
         result, by_path[label] = kv_transfer(pkg, ops, dev, card, eng.params, cfg)
+        emit(dict(result, path=label))
+    if path.get("scoring"):
+        label = path["label"] + "_scoring"
+        result, by_path[label] = scoring(pkg, ops, dev, card, eng.params, cfg)
         emit(dict(result, path=label))
     return by_path
 
@@ -1742,6 +1753,449 @@ def kv_transfer(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t_phase
     return out, launches
+
+
+# -- the scoring plane ---------------------------------------------------------
+SCORING_MODEL = TRANSFER_MODEL
+#: simulated fleet of the scale part: pods x prompts a pod, 64 blocks each
+SIM_PODS, SIM_PROMPTS = 16, 256
+SCORE_REQUESTS = 1000
+#: (NATIVE_INDEX, SCORER_SHARDS) of the timed configurations; the first is
+#: the service's default and also serves the route and remove parts
+SCORING_CONFIGS = ((True, 0), (True, 4), (False, 0), (False, 4))
+#: the code points the scoring phase's prompts are drawn from (below the
+#: UTF-16 surrogates, which a UTF-8 prompt cannot carry)
+CHAR_IDS = (0x20, 0xD800)
+
+
+class CharTokenizer:
+    """Token id = the character's code point, offsets in UTF-8 bytes (what
+    the tokenization pool's prefix store reads). Prompts are drawn from
+    ``CHAR_IDS``, so the ids are the token ids the pods get, all below
+    Llama-3.1's vocabulary."""
+
+    def encode(self, prompt, model_name):
+        ids = [ord(c) for c in prompt]
+        ends = np.cumsum([1 if i < 0x80 else 2 if i < 0x800 else 3 for i in ids])
+        starts = np.concatenate(([0], ends[:-1]))
+        return ids, list(zip(starts.tolist(), ends.tolist()))
+
+
+def char_prompts(rng, n: int, length: int) -> list[list[int]]:
+    return rng.integers(*CHAR_IDS, (n, length)).tolist()
+
+
+def as_text(tokens) -> str:
+    return "".join(map(chr, tokens))
+
+
+class ScoringHttp:
+    """A scoring service's aiohttp app on 127.0.0.1, served by an event loop
+    in a thread of its own, and one keep-alive client connection to it."""
+
+    def __init__(self, service, port: int):
+        import asyncio
+        import http.client
+        import threading
+
+        from aiohttp import web
+
+        self.loop = asyncio.new_event_loop()
+        self.runner = web.AppRunner(service.build_app())
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            self.loop.run_until_complete(self.runner.setup())
+            self.loop.run_until_complete(web.TCPSite(self.runner, "127.0.0.1", port).start())
+            started.set()
+            self.loop.run_forever()
+
+        self.thread = threading.Thread(target=run, name="scoring-http", daemon=True)
+        self.thread.start()
+        if not started.wait(30):
+            fail("scoring: the HTTP server did not start")
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+
+    def score(self, tokens, pods=None) -> dict:
+        body = {"prompt": as_text(tokens), "model": SCORING_MODEL}
+        if pods:
+            body["pod_identifiers"] = pods
+        self.conn.request("POST", "/score_completions", json.dumps(body),
+                          {"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        payload = json.loads(resp.read())
+        if resp.status != 200 or "degraded" in payload:
+            fail(f"scoring: /score_completions answered {resp.status} {payload}")
+        return payload["scores"]
+
+    def close(self):
+        import asyncio
+
+        self.conn.close()
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(), self.loop).result(30)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+class Scorer:
+    """The port's ``ScoringService`` in process: its SUB socket on one free
+    loopback port, its HTTP API on another."""
+
+    def __init__(self, api, native_index: bool, shards: int):
+        self.endpoint = f"tcp://127.0.0.1:{free_local_port()}"
+        self.service = api.ScoringService(
+            api.ServiceConfig(zmq_endpoint=self.endpoint, block_size=16,
+                              native_index=native_index, scorer_shards=shards),
+            tokenizer=CharTokenizer())
+        self.service.start()
+        self.http = ScoringHttp(self.service, free_local_port())
+        index = self.service.indexer.kv_block_index
+        inner = getattr(index, "inner", index)
+        self.backend = type(inner).__name__
+        if self.service.sharded_index is not None:
+            shard_types = {type(s).__name__ for s in self.service.sharded_index.shards}
+            self.backend += "[" + ",".join(sorted(shard_types)) + "]"
+
+    def size(self) -> dict:
+        return self.service._refresh_index_gauges()
+
+    def close(self):
+        self.http.close()
+        self.service.shutdown()
+
+
+def join_fleet(publishers: dict, scorer: Scorer, timeout: float = 30.0) -> None:
+    """Publish empty batches (they change no index or counter) from every
+    publisher until the scorer's fleet health has seen each one's pod:
+    events published after this reach the index."""
+    health = scorer.service.fleet_health
+    deadline = time.monotonic() + timeout
+    while not all(pod in health.snapshot()["pods"] for pod in publishers):
+        if time.monotonic() > deadline:
+            fail(f"scoring: publishers never reached the scorer: {sorted(publishers)}")
+        for pod, pub in publishers.items():
+            if pod not in health.snapshot()["pods"]:
+                pub.publish([])
+        time.sleep(0.01)
+    scorer.service.events_pool.drain(timeout)
+
+
+def scorable_lag_ms(scorer: Scorer, kvblock, pod: str, last_hash: int) -> float:
+    """Milliseconds from now until ``last_hash`` is in the index under
+    ``pod`` (10 s deadline)."""
+    index = scorer.service.indexer.kv_block_index
+    key = kvblock.Key(SCORING_MODEL, last_hash)
+    t = time.perf_counter()
+    while pod not in index.lookup([key], {pod}).get(key, []):
+        if time.perf_counter() - t > 10:
+            fail(f"scoring: {pod}'s last block not scorable 10 s after its request ended")
+        time.sleep(0.0002)
+    return (time.perf_counter() - t) * 1e3
+
+
+def synthetic_fleet(kvblock, events_mod, rng):
+    """Batches of ``SIM_PODS`` simulated pods, as a pod publishes them: one
+    batch a prompt, one ``BlockStored`` an HBM page (its hash, parent and
+    16 token ids). Returns (batches by pod, one prompt's tokens by
+    (pod, prompt index), block count)."""
+    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=16))
+    batches, prompts = {}, {}
+    for i in range(SIM_PODS):
+        pod = f"sim-pod-{i:02d}"
+        batches[pod] = []
+        for j, tokens in enumerate(char_prompts(rng, SIM_PROMPTS, 1024)):
+            hashes = db.prefix_hashes(tokens)
+            batches[pod].append([
+                events_mod.BlockStored(block_hashes=[h], parent_block_hash=hashes[b - 1] if b else None,
+                                       token_ids=tokens[b * 16:(b + 1) * 16], block_size=16,
+                                       medium="tpu_hbm")
+                for b, h in enumerate(hashes)])
+            prompts[pod, j] = tokens
+    return batches, prompts, SIM_PODS * SIM_PROMPTS * 64
+
+
+def ingest_and_time(pkg, scorer: Scorer, batches, prompts, n_blocks, base_blocks, rng) -> dict:
+    """Publish the simulated fleet into ``scorer`` over ZMQ (one publisher a
+    pod), wait until every entry is admitted, hold the index's entry count
+    against what was published, then time ``SCORE_REQUESTS`` HTTP score
+    requests of 1088 tokens: a published prompt and 64 fresh tokens, each
+    of which must score 64 on the pod that published it."""
+    kvevents, collector = pkg["kvevents"], pkg["collector"]
+    pubs = {pod: kvevents.ZMQPublisher(kvevents.ZMQPublisherConfig(
+        endpoint=scorer.endpoint, pod_identifier=pod, model_name=SCORING_MODEL)) for pod in batches}
+    try:
+        join_fleet(pubs, scorer)
+        admitted0 = collector.snapshot()["admissions"]
+        t0 = time.perf_counter()
+        for pod, pub in pubs.items():
+            for events in batches[pod]:
+                if pub.publish(events) < 0:
+                    fail(f"scoring: {pod}'s publisher dropped a batch")
+        publish_s = time.perf_counter() - t0
+        deadline = t0 + 60
+        while collector.snapshot()["admissions"] - admitted0 < n_blocks:
+            if time.perf_counter() > deadline:
+                fail(f"scoring: {collector.snapshot()['admissions'] - admitted0} of {n_blocks} "
+                     f"published entries admitted after 60 s")
+            time.sleep(0.005)
+        ingest_s = time.perf_counter() - t0
+    finally:
+        for pub in pubs.values():
+            pub.close()
+    size = scorer.size()
+    if size["blocks"] != base_blocks + n_blocks:
+        fail(f"scoring: the index holds {size['blocks']} blocks, {base_blocks} + {n_blocks} published")
+    keys = list(prompts)
+    # Distinct prompts: each request's text is new to the tokenization
+    # pool's prefix store, which would otherwise answer a repeated prefix
+    # from its cache with the tokens of whole cached chunks only.
+    picks = rng.choice(len(keys), SCORE_REQUESTS, replace=False)
+    suffixes = char_prompts(rng, SCORE_REQUESTS, 64)
+    ms, wrong = [], 0
+    for n, (i, suffix) in enumerate(zip(picks.tolist(), suffixes)):
+        pod, _ = keys[i]
+        t = time.perf_counter()
+        scores = scorer.http.score(prompts[keys[i]] + suffix)
+        ms.append((time.perf_counter() - t) * 1e3)
+        wrong += scores != {pod: 64}
+    if wrong:
+        fail(f"scoring: {wrong} of {SCORE_REQUESTS} score requests missed their pod's 64 blocks")
+    return {
+        "backend": scorer.backend,
+        "entries_published": n_blocks,
+        "index_blocks": size["blocks"],
+        "index_pods": size["pods"],
+        "publish_s": publish_s,
+        "ingest_s": ingest_s,
+        "ingest_events_per_s": n_blocks / ingest_s,
+        "score_ms_p50": float(np.percentile(ms, 50)),
+        "score_ms_p99": float(np.percentile(ms, 99)),
+        "score_ms_mean": float(np.mean(ms)),
+    }
+
+
+def route_and_remove(pkg, ops, dev, params, cfg, scorer: Scorer, out: dict, rng) -> dict:
+    """The route and remove parts of the scoring phase (below), on two pods
+    publishing into ``scorer``; returns the kernel launches they made."""
+    server, serve, kvblock = pkg["server"], pkg["serve"], pkg["kvblock"]
+    prompts = char_prompts(rng, 8, 1024)
+    fresh = char_prompts(rng, 4, 1024)
+    suffixes = char_prompts(rng, 8, 64)
+    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=16))
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    engines, pods = [], {}
+    try:
+        for name, pages in (("pod-a", 1024), ("pod-b", 384)):
+            eng = transfer_engine(server, dev, params, cfg, {"total_pages": pages})
+            engines.append(eng)
+            pods[name] = serve.PodServer(serve.PodServerConfig(
+                model_name=SCORING_MODEL, pod_identifier=name, zmq_endpoint=scorer.endpoint),
+                engine=eng)
+            pods[name].start()
+        join_fleet({name: pod._publisher for name, pod in pods.items()}, scorer)
+
+        # -- route -------------------------------------------------------------
+        owner = ["pod-a" if i % 2 == 0 else "pod-b" for i in range(8)]
+        lag_ms = []
+        for p, name in zip(prompts, owner):
+            serve_each(pods[name], server, [p])
+            lag_ms.append(scorable_lag_ms(scorer, kvblock, name, db.prefix_hashes(p)[-1]))
+        wrong = []
+        for i, (p, name) in enumerate(zip(prompts, owner)):
+            scores = scorer.http.score(p + suffixes[i])
+            if scores != {name: 64}:
+                wrong.append({"prompt": i, "served_by": name, "scores": scores})
+        if wrong:
+            fail(f"scoring: repeats not routed to the pod that served them: {wrong}")
+        routed, cold = [], []
+        for i, (p, name) in enumerate(zip(prompts, owner)):
+            routed += serve_each(pods[name], server, [p + suffixes[i]])
+        for i, (p, name) in enumerate(zip(prompts, owner)):
+            cold += serve_each(pods["pod-b" if name == "pod-a" else "pod-a"], server, [p + suffixes[i]])
+        cached = [s.num_cached_prompt for s in routed]
+        if cached != [1024] * 8:
+            fail(f"scoring: routed repeats hit {cached} cached prompt tokens, not 1024 each")
+        out["route"] = {
+            "prompts": 8, "prompt_tokens": 1024, "new_tokens": 8, "repeat_tokens": 1088,
+            "routed_to_server": 8, "scores": 64,
+            "lag_request_end_to_last_block_scorable_ms": lag_ms,
+            "cached_prompt_tokens_routed": cached,
+            "cached_prompt_tokens_cold": [s.num_cached_prompt for s in cold],
+            "ttft_ms_routed_median": ms_median(routed), "ttft_ms_cold_median": ms_median(cold),
+        }
+
+        # -- remove ------------------------------------------------------------
+        serve_each(pods["pod-b"], server, fresh)
+        bm = pods["pod-b"].engine.block_manager
+        # The 4 prompts pod-b served first, then every other token list it
+        # served: the controls (pod-a's prompts with their suffixes) and the
+        # fresh prompts.
+        first_b = [p for p, name in zip(prompts, owner) if name == "pod-b"]
+        served_b = first_b + [p + s for p, s, name in zip(prompts, suffixes, owner)
+                              if name == "pod-a"] + fresh
+        held = [len(bm.lookup_chain(db.prefix_hashes(p))) for p in served_b]
+        t = time.perf_counter()
+        # Scored as token ids (the indexer's own entry point): the texts are
+        # prefixes of ones the tokenization pool has seen, which its prefix
+        # store would answer with the tokens of whole cached chunks only.
+        indexer = scorer.service.indexer
+
+        def pod_b_scores():
+            return [indexer.score_tokens(p, SCORING_MODEL, ["pod-b"]).get("pod-b", 0) for p in served_b]
+
+        while (scores := pod_b_scores()) != held:
+            if time.perf_counter() - t > 10:
+                fail(f"scoring: pod-b's scores {scores} != the blocks it holds {held} after 10 s")
+            time.sleep(0.01)
+        if all(h == 64 for h in held[:4]):
+            fail("scoring: pod-b evicted none of the prompts it served first")
+        out["remove"] = {"order": "pod-b's first 4 prompts, 4 controls, 4 fresh prompts",
+                         "pod_b_scores": scores, "pod_b_held_consecutive_blocks": held,
+                         "settled_ms": (time.perf_counter() - t) * 1e3}
+    finally:
+        for pod in pods.values():
+            pod.shutdown()
+    prefill = sum(e.prefill_stats["dispatches"] for e in engines)
+    decode = sum(e.decode_stats["steps"] + e.decode_graphs.warmup_steps for e in engines)
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = expected_launches(cfg, None, None, prefill, decode)
+    if launches != expected:
+        fail(f"scoring: kernel launches {launches} != expected {expected}")
+    return launches
+
+
+def scoring(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """The port's scoring plane routing two Llama-3.1-8B pods at full width
+    and depth on the 8B path's parameters (one copy on the card): the
+    port's ``ScoringService`` in process (SUB socket and HTTP API on
+    loopback ports, the char tokenizer above), ``pod-a`` with 1024 pages of
+    16 and ``pod-b`` with 384, both publishing over ZMQ.
+
+    Route: 8 distinct 1024-token prompts, alternating pods, 8 new tokens
+    each; every block becomes scorable (the lag from a request's end to its
+    last block's visibility is reported); each prompt plus 64 fresh tokens
+    scores 64 on the pod that served it and 0 elsewhere; sent there it hits
+    1024 cached tokens; sent to the other pod as a control it is cold.
+    Remove: ``pod-b`` serves 4 fresh prompts; its scores for the 4 prompts
+    it served first (and for the controls and fresh prompts it served)
+    equal the consecutive blocks its block manager holds.
+    Scale: 16 simulated pods publish 16,384 blocks each over the same
+    socket; every entry lands, and 1,000 HTTP score requests of 1,088
+    tokens (1,000 distinct published prompts, each with 64 fresh tokens)
+    are timed under ``NATIVE_INDEX`` 1/0 x ``SCORER_SHARDS`` 0/4.
+    Exact launch counts over both pods' engines."""
+    kvblock = pkg["kvblock"]
+    from llm_d_kv_cache_manager_tpu_torch.kvcache import kvevents
+    from llm_d_kv_cache_manager_tpu_torch.kvcache.metrics import collector
+    from llm_d_kv_cache_manager_tpu_torch.server import api
+
+    pkg = dict(pkg, kvevents=kvevents, collector=collector)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    out = {"phase": "scoring", "card": card, "http": True,
+           "host_times": "score, ingest and lag times are host CPU wall times on the card's machine"}
+
+    scorer = Scorer(api, *SCORING_CONFIGS[0])
+    try:
+        out["index_backend"] = scorer.backend
+        if scorer.backend != "NativeMemoryIndex":
+            fail(f"scoring: the default service runs the {scorer.backend} backend, not the native index")
+        launches = route_and_remove(pkg, ops, dev, params, cfg, scorer, out, rng)
+        free_cuda()
+
+        # -- scale -------------------------------------------------------------
+        t = time.perf_counter()
+        batches, sim_prompts, n_blocks = synthetic_fleet(kvblock, kvevents, rng)
+        out["scale"] = {"simulated_pods": SIM_PODS, "blocks_per_pod": SIM_PROMPTS * 64,
+                        "events_per_batch": 64, "score_requests": SCORE_REQUESTS,
+                        "score_prompt_tokens": 1088, "make_batches_s": time.perf_counter() - t,
+                        "configs": {}}
+        for i, (native, shards) in enumerate(SCORING_CONFIGS):
+            if i:
+                scorer = Scorer(api, native, shards)
+            base = scorer.size()["blocks"]
+            result = ingest_and_time(pkg, scorer, batches, sim_prompts, n_blocks, base, rng)
+            out["scale"]["configs"][f"NATIVE_INDEX={int(native)},SCORER_SHARDS={shards}"] = result
+            scorer.close()
+            scorer = None
+    finally:
+        if scorer is not None:
+            scorer.close()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+def division_checks(llama, eng, cfg, prompt, ps, dev) -> dict:
+    """Both int8 scale divisions on the card held bit for bit against the
+    same function on the CPU. ``quantize_tensor`` on every matrix of the
+    8B's layer 0: codes and scales. The int8 KV write: one 1024-token
+    prefill of the model into small int8 pools, each call of
+    ``_quantized_scatter_kv_all_layers`` replayed on the CPU from copies of
+    its inputs: scales (and codes, reported). Beside each, how many scales
+    the old Python-scalar divisor (which CUDA turns into a product with
+    its float32 reciprocal) would have moved."""
+    from llm_d_kv_cache_manager_tpu_torch.models import quant
+
+    weights = {}
+    for name, w in eng.params["layers"][0].items():
+        if not isinstance(w, torch.Tensor) or w.ndim != 2:
+            continue
+        on_card, on_cpu = quant.quantize_tensor(w), quant.quantize_tensor(w.cpu())
+        amax = w.float().abs().amax(dim=-2, keepdim=True)
+        scalar = (torch.clamp(amax, min=1e-8) / 127.0).cpu()
+        weights[name] = {
+            "shape": list(w.shape),
+            "codes_equal": torch.equal(on_card.q.cpu(), on_cpu.q),
+            "scales_equal": torch.equal(on_card.scale.cpu(), on_cpu.scale),
+            "scalar_divisor_scales_unequal": int((scalar != on_cpu.scale).sum()),
+        }
+    calls = []
+    real = llama._quantized_scatter_kv_all_layers
+
+    def recorded(pages_q, scales, fresh, page_ids, slot_ids, valid, positions):
+        inputs = [None if t is None else t.cpu() for t in
+                  (pages_q, scales, fresh, page_ids, slot_ids, valid, positions)]
+        out = real(pages_q, scales, fresh, page_ids, slot_ids, valid, positions)
+        calls.append((inputs, pages_q.cpu(), scales.cpu()))
+        return out
+
+    n_pages = len(prompt) // ps + 1
+    pools = [torch.zeros((cfg.n_layers, n_pages, ps, cfg.n_kv_heads, cfg.hd), dtype=torch.int8,
+                         device=dev) for _ in range(2)]
+    scales = [torch.zeros((cfg.n_layers, n_pages, cfg.n_kv_heads), dtype=torch.float32, device=dev)
+              for _ in range(2)]
+    pos = torch.arange(len(prompt), dtype=torch.int32, device=dev)[None]
+    llama._quantized_scatter_kv_all_layers = recorded
+    try:
+        llama.prefill(eng.params, cfg, torch.tensor([prompt], dtype=torch.int32, device=dev), pos,
+                      torch.ones_like(pos, dtype=torch.bool), pools[0], pools[1], 1 + pos // ps, pos % ps,
+                      torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                      torch.zeros((1,), dtype=torch.int32, device=dev),
+                      k_scales=scales[0], v_scales=scales[1])
+        torch.cuda.synchronize()
+    finally:
+        llama._quantized_scatter_kv_all_layers = real
+    writes = []
+    for (pages_q, sc, *rest), card_pages, card_scales in calls:
+        real(pages_q, sc, *rest)
+        fresh = rest[0].float()
+        amax = fresh.abs().amax(dim=-1).clamp(min=1e-8)
+        writes.append({
+            "scales_equal": torch.equal(sc, card_scales),
+            "codes_equal": torch.equal(pages_q, card_pages),
+            "token_scales": amax.numel(),
+            "scalar_divisor_scales_unequal": int((amax.to(dev) / 127.0).cpu().ne(amax / amax.new_full((), 127.0)).sum()),
+        })
+    out = {"quantize_tensor_layer0": weights, "int8_kv_write": writes}
+    if len(writes) != 2 or not all(w["scales_equal"] for w in writes):
+        fail(f"int8 KV write scales on the card differ from the CPU's: {writes}")
+    if not all(w["codes_equal"] and w["scales_equal"] for w in weights.values()):
+        fail(f"quantize_tensor on the card differs from the CPU's: {weights}")
+    return out
 
 
 def sync_free_decode_steps(models, ops, eng, cfg, prompts, ps, dev) -> dict:

@@ -1,4 +1,17 @@
 from .keys import Key, PodEntry, DeviceTier, DEFAULT_TIER, tier_for_medium
+from .index import (
+    Index,
+    IndexConfig,
+    InMemoryIndexConfig,
+    CostAwareMemoryIndexConfig,
+    NativeMemoryIndexConfig,
+    RedisIndexConfig,
+    create_index,
+)
+from .in_memory import InMemoryIndex
+from .cost_aware import CostAwareMemoryIndex
+from .instrumented import InstrumentedIndex
+from .native_memory import NativeMemoryIndex, native_available
 from .token_processor import (
     ChunkedTokenDatabase,
     TokenProcessorConfig,
@@ -8,6 +21,18 @@ from .token_processor import (
 )
 
 __all__ = [
+    "Index",
+    "IndexConfig",
+    "InMemoryIndexConfig",
+    "CostAwareMemoryIndexConfig",
+    "RedisIndexConfig",
+    "create_index",
+    "InMemoryIndex",
+    "CostAwareMemoryIndex",
+    "InstrumentedIndex",
+    "NativeMemoryIndexConfig",
+    "NativeMemoryIndex",
+    "native_available",
     "Key",
     "PodEntry",
     "DeviceTier",

@@ -12,6 +12,10 @@ Parity with reference ``pkg/kvcache/kvblock/token_processor.go``:
   ``hash_seed`` string (``:80-101``), which must equal the serving engine's
   hash seed (vLLM: ``PYTHONHASHSEED``) for read-path hashes to line up with
   engine-emitted event hashes.
+
+The hot loop optionally dispatches to the C++ native kernel
+(``native/hashcore.cpp``) via ``native.hashcore``; the pure-Python path here
+is the audited fallback and the parity oracle for tests.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ class TokenProcessorConfig:
     # token_processor.go:37-40). Empty string matches vLLM with
     # PYTHONHASHSEED unset-equivalent deployments.
     hash_seed: str = ""
+    # Use the C++ native kernel when available.
+    use_native: bool = True
 
 
 class ChunkedTokenDatabase:
@@ -63,6 +69,15 @@ class ChunkedTokenDatabase:
         if self.config.block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {self.config.block_size}")
         self._init_hash = root_hash(self.config.hash_seed)
+        self._native = None
+        if self.config.use_native:
+            try:
+                from ...native import hashcore
+
+                if hashcore.available():
+                    self._native = hashcore
+            except Exception:
+                self._native = None
 
     @property
     def init_hash(self) -> int:
@@ -75,6 +90,10 @@ class ChunkedTokenDatabase:
 
     def prefix_hashes(self, tokens: Sequence[int]) -> list[int]:
         """Chained hashes for each complete block of ``tokens``."""
+        if self._native is not None:
+            return self._native.chain_hashes(
+                self._init_hash, tokens, self.config.block_size
+            )
         prefix = self._init_hash
         out = []
         for chunk in self.chunk_tokens(tokens):

@@ -12,6 +12,9 @@ from .events import (
     RequestAudit,
     decode_event_batch,
 )
+from .health import FleetHealth, FleetHealthConfig
+from .pool import KVEventsPool, KVEventsPoolConfig, Message, fnv1a_32
+from .zmq_subscriber import ZMQSubscriber, ZMQSubscriberConfig, parse_topic
 from .publisher import ZMQPublisher, ZMQPublisherConfig
 
 __all__ = [
@@ -27,6 +30,15 @@ __all__ = [
     "PrefillComplete",
     "RequestAudit",
     "decode_event_batch",
+    "FleetHealth",
+    "FleetHealthConfig",
+    "KVEventsPool",
+    "KVEventsPoolConfig",
+    "Message",
+    "fnv1a_32",
+    "ZMQSubscriber",
+    "ZMQSubscriberConfig",
+    "parse_topic",
     "ZMQPublisher",
     "ZMQPublisherConfig",
 ]

@@ -626,7 +626,7 @@ def start_metrics_logging(interval_seconds: float) -> None:
 
 def stop_metrics_logging(timeout: float = 2.0) -> None:
     """Stop the metrics beat and JOIN the thread. Without the join (the
-    pre-PR-5 bug) a stop/start pair in one process raced: ``start`` saw the
+    earlier bug) a stop/start pair in one process raced: ``start`` saw the
     old thread still alive, returned early, and the beat never restarted —
     and the half-dead thread leaked past interpreter teardown checks."""
     global _beat_thread

@@ -543,7 +543,9 @@ def _quantized_scatter_kv_all_layers(
         to_pages = pidx[None, :, None].expand(nl, n, n_kv)
         sc.scatter_reduce_(1, to_pages, keep_scale[None, :, None].expand(nl, n, n_kv), "prod")
         # Per-token symmetric scale candidates, scatter-maxed into the pages.
-        cand = x.abs().amax(dim=-1).clamp(min=1e-8) / 127.0  # [nl, n, n_kv]
+        # 127 is a tensor divisor: CUDA divides by a Python scalar as a
+        # product with its float32 reciprocal (see quant.quantize_kv_page).
+        cand = x.abs().amax(dim=-1).clamp(min=1e-8) / x.new_full((), 127.0)  # [nl, n, n_kv]
         sc.scatter_reduce_(1, to_pages, cand, "amax")
 
         # Requantize each carry page's resident codes under its grown scale.

@@ -58,10 +58,12 @@ class QuantizedTensor:
 
 
 def quantize_tensor(w: torch.Tensor) -> QuantizedTensor:
-    """Symmetric per-output-channel int8 quantization over axis -2."""
+    """Symmetric per-output-channel int8 quantization over axis -2. Codes
+    and scales equal the JAX package's on every device: 127 is a tensor
+    divisor, as in :func:`quantize_kv_page`."""
     w32 = w.float()
     amax = w32.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q=q, scale=scale)
 

@@ -1,4 +1,5 @@
-"""Observability. Only ``lifecycle`` (the block-lifecycle ledger and the
-reuse-distance estimator, a copy of the JAX package's module) is here: the
-metrics collector takes its bucket constants from it. Tracing, SLOs,
-audit and federation are not ported."""
+"""Observability: the block-lifecycle ledger and reuse-distance estimator
+(``lifecycle``), request tracing with W3C ``traceparent`` propagation
+(``tracing``), the scorer's routing-quality audit and index-staleness
+probes (``audit``) and fleet federation (``federation``), copies of the
+JAX package's modules. SLOs and the flight recorder are not ported."""
