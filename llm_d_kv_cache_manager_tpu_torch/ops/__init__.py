@@ -10,6 +10,7 @@ from .paged_attention import (
     plan_decode_splits,
 )
 from .sampling import sample_tokens
+from ._counting import LAUNCH_LOCK
 # Last: gmm imports models.quant, whose package imports the names above.
 from .gmm import (
     grouped_matmul,
@@ -19,8 +20,8 @@ from .gmm import (
     plan_grouped_matmul,
 )
 
-#: every kernel wrapper that counts its launches (``wrapper.launches``), by
-#: kernel name
+#: every kernel wrapper that counts its launches (``wrapper.launches``, each
+#: change under ``LAUNCH_LOCK``), by kernel name
 COUNTED = {
     "paged_decode": paged_attention,
     "paged_decode_int8": paged_decode_int8,
@@ -31,6 +32,7 @@ COUNTED = {
 
 __all__ = [
     "COUNTED",
+    "LAUNCH_LOCK",
     "sample_tokens",
     "rms_norm",
     "apply_rope",

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._counting import count_launch
 from .attention import prefill_with_paged_context
 
 #: score rows per kernel block (query tokens x GQA group), fixed in the kernel
@@ -95,7 +96,7 @@ def _launch(q, k, v, k_pages, v_pages, block_tables, ctx_lens, n_valid, scale):
         float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch("flash_prefill", err)
-    flash_prefill_paged.launches += 1
+    count_launch(flash_prefill_paged)
     return out
 
 

@@ -29,6 +29,7 @@ import torch
 
 from ..models.quant import QuantizedTensor
 from . import _build
+from ._counting import count_launch
 
 #: the kernels' shared-memory group table (``kMaxGroups``)
 _MAX_GROUPS = 1024
@@ -180,7 +181,7 @@ def grouped_matmul_bf16(
     out, plan = _launch("grouped_matmul_bf16", lhs, rhs, None, group_sizes)
     if plan is not None:
         grouped_matmul_bf16.last_plan = plan
-        grouped_matmul_bf16.launches += 1
+        count_launch(grouped_matmul_bf16)
     return out
 
 
@@ -193,7 +194,7 @@ def grouped_matmul_int8(
     out, plan = _launch("grouped_matmul_int8", lhs, q, scale, group_sizes)
     if plan is not None:
         grouped_matmul_int8.last_plan = plan
-        grouped_matmul_int8.launches += 1
+        count_launch(grouped_matmul_int8)
     return out
 
 

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._counting import count_launch
 
 _NEG_INF = float("-inf")
 #: query rows a block: the 8 columns of one mma tile (csrc/paged_decode.cu);
@@ -306,7 +307,7 @@ def paged_decode_int8(
     out, paged_decode_int8.last_plan = _launch(q, k_pages, v_pages, k_scale, v_scale,
                                                block_tables, seq_lens, fresh_k, fresh_v,
                                                scale, layer)
-    paged_decode_int8.launches += 1
+    count_launch(paged_decode_int8)
     return out
 
 
@@ -357,7 +358,7 @@ def paged_attention(
         )
     out, paged_attention.last_plan = _launch(q, k_pages, v_pages, None, None, block_tables,
                                              seq_lens, fresh_k, fresh_v, scale, layer)
-    paged_attention.launches += 1
+    count_launch(paged_attention)
     return out
 
 

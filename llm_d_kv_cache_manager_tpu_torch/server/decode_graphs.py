@@ -27,6 +27,11 @@ instead of some twenty kernel launches a layer a step.
 - The kernel wrappers count launches in Python, which a replay does not
   run: each graph keeps the counts its capture added (and takes them back,
   since a capture launches nothing), and every replay adds them again.
+  A capture holds ``ops.LAUNCH_LOCK`` throughout: pods in one process run
+  engine loops on threads of their own, and another thread's launches must
+  not land in this capture's count, nor another capture — or the
+  device-wide synchronization ``torch.cuda.graph`` starts with, which
+  invalidates a capture in flight on another thread — overlap it.
 - All graphs share one memory pool; they never run concurrently (one
   stream), and each graph's output stays referenced, so no capture reuses
   another graph's output buffer.
@@ -57,18 +62,23 @@ def launch_counts() -> dict[str, int]:
 
 
 def add_launches(delta: dict[str, int]) -> None:
-    for name, n in delta.items():
-        ops.COUNTED[name].launches += n
+    with ops.LAUNCH_LOCK:
+        for name, n in delta.items():
+            ops.COUNTED[name].launches += n
 
 
 def count_launches(fn: Callable):
     """Run ``fn`` (a capture) and return its result and the launches the
     wrappers counted during it, taking those counts back: a capture records
-    kernel launches but runs none."""
-    before = launch_counts()
-    out = fn()
-    delta = {name: n - before[name] for name, n in launch_counts().items() if n != before[name]}
-    add_launches({name: -n for name, n in delta.items()})
+    kernel launches but runs none. ``fn`` runs under ``ops.LAUNCH_LOCK``, so
+    another thread's launches wait rather than land in the capture's count,
+    and no other capture overlaps it."""
+    with ops.LAUNCH_LOCK:
+        before = launch_counts()
+        out = fn()
+        delta = {name: n - before[name] for name, n in launch_counts().items()
+                 if n != before[name]}
+        add_launches({name: -n for name, n in delta.items()})
     return out, delta
 
 

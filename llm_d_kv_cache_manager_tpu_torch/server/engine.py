@@ -19,7 +19,9 @@ and the host-DRAM tier (``BlockManagerConfig.host_pages``,
 to a pinned host slot pool, prefix hits restore them, gated by the
 recompute-vs-restore cost model; see "Host-DRAM tier" below), and
 cross-pod KV transfer (``kv_block_bytes``, ``export_kv_blocks``,
-``import_kv_blocks``; see "KV transfer" below). The other knob-gated
+``import_kv_blocks``; see "KV transfer" below), and the step telemetry
+behind the pod's ``OBS_METRICS`` (``obs_step_timing``, ``step_stats``,
+host clocks as in the JAX engine). The other knob-gated
 features of the JAX engine — the remote tier and integrity digests,
 speculative decoding, TP/SP — are not ported yet, and their config fields
 do not exist here.
@@ -432,6 +434,27 @@ class Engine:
             "deadline_expired": 0,
             "aborted": 0,
         }
+        #: engine-step telemetry, the JAX engine's phases and keys:
+        #: cumulative host wall seconds per phase — schedule, prefill
+        #: (dispatch + sampling), decode (dispatch + commit), sample (the
+        #: blocking fetch of sampled ids, a slice of prefill/decode), gather
+        #: (page moves between tiers, enqueued on the streams), demote (the
+        #: remote tier's, not ported: stays 0), publish (finish detection +
+        #: KV-event flush). Host clocks on an asynchronous device: a graph
+        #: replay's decode seconds are its launch, and the wait for the
+        #: device lands in ``sample_s`` where the sampled ids are read.
+        #: Off by default: ``obs_step_timing=False`` reads no clock.
+        self.obs_step_timing = False
+        self.step_stats = {
+            "steps": 0,
+            "schedule_s": 0.0,
+            "prefill_s": 0.0,
+            "decode_s": 0.0,
+            "sample_s": 0.0,
+            "gather_s": 0.0,
+            "demote_s": 0.0,
+            "publish_s": 0.0,
+        }
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -642,6 +665,12 @@ class Engine:
                 self.transfer_copy_stats["import_h2d_s"] += seconds
             else:
                 self.host_copy_stats[f"{kind}_s"] += seconds
+
+    def block_digest(self) -> dict[str, list[int]]:
+        """Resync digest across every tier this pod holds: the block
+        manager's (device pages and host slots). The JAX engine's also
+        lists its remote store, which the port does not have."""
+        return self.block_manager.block_digest()
 
     @staticmethod
     def _ema(prev: Optional[float], sample: float, alpha: float = 0.3) -> float:
@@ -887,7 +916,10 @@ class Engine:
         stats = self.host_copy_stats
         stats["flushes"] += 1
         stats["restored"] += len(restores)
-        stats["flush_host_s"] += time.perf_counter() - t_host
+        host_s = time.perf_counter() - t_host
+        stats["flush_host_s"] += host_s
+        if self.obs_step_timing:
+            self.step_stats["gather_s"] += host_s
 
     def _gather_pages(self, pages: list[int]) -> list[torch.Tensor]:
         """Device pages ``pages`` of every pool, slot-major ``[n, L, ...]``."""
@@ -1184,6 +1216,8 @@ class Engine:
         """One engine iteration — a prefill batch or a decode step, or with
         chunked prefill a mixed step (prefill chunks, then the running
         lanes' decode). Returns sequences finished this step."""
+        timed = self.obs_step_timing
+        t0 = time.perf_counter() if timed else 0.0
         shed: list[Sequence] = []
         if self._deadlines_used:
             # Deadline shedding BEFORE scheduling: an expired waiting seq
@@ -1200,11 +1234,17 @@ class Engine:
             # waits for what has not landed.
             self._prefetch_host_pages()
         out = self.scheduler.schedule()
+        if timed:
+            t1 = time.perf_counter()
+            self.step_stats["schedule_s"] += t1 - t0
         if out.prefill:
             # Prefill must see committed decode state (page accounting,
             # finish detection): it never overlaps an in-flight burst.
             self._drain_inflight()
             self._run_prefill(out.prefill, out.chunks)
+        if timed:
+            t2 = time.perf_counter()
+            self.step_stats["prefill_s"] += t2 - t1
         if out.decode:
             # Mixed step: the lanes were snapshotted at schedule time — a
             # final chunk published above joins next step, and lanes its
@@ -1213,6 +1253,9 @@ class Engine:
             self._run_decode_fused(out.decode)
         elif not out.prefill:
             self._drain_inflight()
+        if timed:
+            t3 = time.perf_counter()
+            self.step_stats["decode_s"] += t3 - t2
 
         newly_finished = list(shed)
         for seq in list(self.scheduler.running):
@@ -1223,6 +1266,9 @@ class Engine:
                 newly_finished.append(seq)
 
         self.block_manager.flush_events()
+        if timed:
+            self.step_stats["publish_s"] += time.perf_counter() - t3
+            self.step_stats["steps"] += 1
         self._step_count += 1
         return newly_finished
 
@@ -1507,7 +1553,13 @@ class Engine:
     def _commit_burst(self, burst: dict) -> None:
         # [lanes, k] from pinned host memory: waits on this burst's copy
         # event, the one host sync of a burst.
+        timed = self.obs_step_timing
+        t0 = time.perf_counter() if timed else 0.0
         toks = burst["toks"].tokens()
+        if timed:
+            # The blocking share of the sampled-id fetch: near zero when a
+            # pipelined burst's copy already landed.
+            self.step_stats["sample_s"] += time.perf_counter() - t0
         for i, seq in enumerate(burst["active"]):
             if not seq.block_table:
                 continue  # preempted after this burst was dispatched
@@ -1602,11 +1654,15 @@ class Engine:
             temperature[i] = seq.sampling.temperature
             top_k[i] = seq.sampling.top_k
             top_p[i] = seq.sampling.top_p
+        timed = self.obs_step_timing
+        t0 = time.perf_counter() if timed else 0.0
         out = sample_tokens(
             logits.float(),
             self._to_device(temperature),
             self._to_device(top_k),
             self._to_device(top_p),
             self._generator,
-        )
-        return out.cpu().numpy()
+        ).cpu().numpy()
+        if timed:
+            self.step_stats["sample_s"] += time.perf_counter() - t0
+        return out

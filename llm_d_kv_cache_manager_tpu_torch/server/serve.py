@@ -1,32 +1,65 @@
-"""GPU pod serving binary: the port's minimal ``PodServer``.
+"""GPU pod serving binary: the port's ``PodServer``.
 
-The port of the JAX package's ``server/serve.py`` main path: a
-continuous-batching ``Engine`` wrapped in
+The port of the JAX package's ``server/serve.py``: a continuous-batching
+``Engine`` wrapped in
 
 - a background engine-loop thread (the only thread that touches the
   engine), fed by ``submit`` / ``generate`` through a staging queue,
 - a ZMQ KV-event publisher wired to the block manager's alloc/evict
   transitions (``kv@<pod>@<model>`` topic, msgpack batches — the same wire
   the indexer's subscriber reads from the JAX pods),
-- an OpenAI-style HTTP surface: ``POST /v1/completions``, ``GET /healthz``.
+- an OpenAI-style HTTP surface: ``POST /v1/completions``, ``GET /healthz``,
+  ``POST /drain``, ``GET /stats``, ``GET /metrics``, ``GET /debug/traces``
+  and ``POST /debug/profile``.
 
-Per-request deadlines are ported (the ``X-Request-Deadline`` header, a
-budget in seconds, and the ``REQUEST_DEADLINE_S`` default), and so are the
-host-DRAM tier's knobs (``HOST_PAGES``, ``KV_QUANT``, ``HOST_PREFETCH``,
-``HOST_TIER_POLICY``) and the cross-pod KV transfer plane: the
-``TRANSFER_ENDPOINT`` export service (a ZMQ ROUTER whose handler hops onto
-the engine loop), the blocking ``pull_prefix`` and ``ASYNC_PULL`` (a
+Ported knobs: per-request deadlines (the ``X-Request-Deadline`` header, a
+budget in seconds, and the ``REQUEST_DEADLINE_S`` default), the host-DRAM
+tier (``HOST_PAGES``, ``KV_QUANT``, ``HOST_PREFETCH``,
+``HOST_TIER_POLICY``), the cross-pod KV transfer plane (the
+``TRANSFER_ENDPOINT`` export service, a ZMQ ROUTER whose handler hops onto
+the engine loop; the blocking ``pull_prefix`` and ``ASYNC_PULL``, where a
 request submitted with ``pull_source``, or over HTTP with an
 ``X-Pull-Source`` header, waits ``importing`` while a worker fetches its
-prefix), through a pool of DEALER clients with the per-peer circuit
-breaker (``TRANSFER_*``, ``PULL_WORKERS``). A failed pull falls back to
-cold prefill. The JAX pod's other knob-gated surfaces are not ported yet:
-the remote tier's pushes and migrations and ``X-Route-Action`` labelling
-(ROADMAP A10), and drain, admission control, tenants, tracing spans,
-Prometheus histograms, the flight recorder and ``/stats`` (A5).
+prefix; a pool of DEALER clients with the per-peer circuit breaker,
+``TRANSFER_*``, ``PULL_WORKERS``; a failed pull falls back to cold
+prefill), and the pod's fleet contract:
+
+- fleet self-healing: ``HEARTBEAT_INTERVAL_S`` (``Heartbeat`` beacons that
+  carry the ``draining`` flag) and ``RESYNC_INTERVAL_S`` (periodic
+  ``IndexSnapshot`` resyncs, the digest read and published on the engine
+  loop; ``publish_index_snapshot`` on demand);
+- admission control: ``ADMISSION_MAX_WAITING`` and
+  ``ADMISSION_MAX_QUEUED_TOKENS`` shed with ``AdmissionError`` (HTTP 429 and
+  ``Retry-After`` from the measured serving rates) before the engine is
+  touched;
+- graceful drain: ``drain`` / ``POST /drain`` / SIGTERM — submits answer
+  503, ``/healthz`` turns 503, in-flight requests get ``DRAIN_TIMEOUT_S``,
+  then the final ``IndexSnapshot`` and the ``PodDrained`` goodbye;
+- the load signals a router reads (``queue_depth``, ``prefill_rate``,
+  ``is_alive``, ``is_draining``, ``open_breaker_endpoints``);
+- observability: ``OBS_TRACING``/``OBS_TRACE_BUFFER`` (request spans with
+  W3C ``traceparent`` propagation, ``/debug/traces``), ``OBS_METRICS``
+  (latency-decomposition histograms and the engine's step telemetry on
+  ``/metrics``, an ``obs`` block on ``/stats``; step phases are host clocks,
+  as in the JAX engine, so on CUDA they time launches and host waits, not
+  device work), ``OBS_PROFILE_DIR`` (``/debug/profile`` writes a
+  ``torch.profiler`` Chrome trace there), and the router's
+  ``X-Route-Action`` label on the request histograms.
+
+Every knob defaults off, and then every response, ``/stats`` key and wire
+byte equals the knobs-off JAX pod's.
+
+Not ported yet: the JAX pod's SLO burn rates and flight recorder
+(``obs/slo.py``, ``obs/flight.py``, the ``OBS_SLO*`` and ``OBS_FLIGHT_*``
+knobs), the lifecycle ledger and MRC hooks (``OBS_LIFECYCLE``,
+``OBS_MRC_*``) and their ``/debug/lifecycle``, ``/debug/mrc`` and
+``/debug/flight`` endpoints, ``OBS_EXEMPLARS`` and ``OBS_AUDIT``, the
+``pod.pull_prefix`` spans and pull histograms, pod roles, the remote tier
+and its migrations, tenant QoS (``TENANT_QOS``, so admission has no tenant
+branch) and KV integrity, and the ``/stats`` blocks of those features.
 
 Run: ``python -m llm_d_kv_cache_manager_tpu_torch.server.serve`` (needs
-aiohttp, and pyzmq for publishing).
+aiohttp, and pyzmq for publishing; prometheus_client for ``/metrics``).
 """
 
 from __future__ import annotations
@@ -43,7 +76,13 @@ from concurrent.futures import TimeoutError as FuturesTimeout
 from dataclasses import dataclass, field
 from typing import Optional
 
-from ..kvcache.kvevents import ZMQPublisher, ZMQPublisherConfig
+from ..kvcache.kvevents import (
+    Heartbeat,
+    IndexSnapshot,
+    PodDrained,
+    ZMQPublisher,
+    ZMQPublisherConfig,
+)
 from ..kvcache.transfer import (
     KVTransferClient,
     KVTransferService,
@@ -61,12 +100,532 @@ from ..models import (
     TINY_QWEN3_MOE,
     LlamaConfig,
 )
-from ..utils import get_logger
+from ..obs import lifecycle as lifecycle_mod
+from ..obs.tracing import Tracer, debug_traces_payload, format_traceparent, parse_traceparent
+from ..utils import get_logger, log_context
 from .block_manager import BlockManagerConfig
 from .engine import Engine, EngineConfig
 from .sequence import SamplingParams, Sequence
 
 log = get_logger("server.serve")
+
+
+class AdmissionError(RuntimeError):
+    """Request rejected by admission control (the pod is overloaded).
+    Carries a ``retry_after_s`` hint derived from the measured serving
+    rates — the HTTP surface turns it into ``429`` + ``Retry-After``."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class DrainingError(RuntimeError):
+    """Request rejected (or terminated) because the pod is draining for a
+    rolling restart — clients should retry against another pod (503)."""
+
+
+def admission_reject_response(web, err: AdmissionError):
+    """The one 429 shape for every admission-reject site: the JSON body
+    carries the float hint verbatim; the ``Retry-After`` header is the
+    hint rounded UP to whole seconds (RFC 9110 allows only integers) and
+    floored at 1 — truncation would turn a 0.2 s hint into ``0``, an
+    immediate-retry invitation to the exact client being shed.
+    ``web`` is the caller's ``aiohttp.web`` module (imported lazily by
+    the HTTP surface, so this helper takes it rather than importing)."""
+    retry_after = max(int(-(-err.retry_after_s // 1)), 1)
+    return web.json_response(
+        {"error": str(err), "retry_after_s": err.retry_after_s},
+        status=429,
+        headers={"Retry-After": str(retry_after)},
+    )
+
+
+class _ServingMetrics:
+    """Prometheus serving metrics (the pod-side analogue of the indexer's
+    collector): request/token counters, prefix-cache savings, TTFT histogram.
+    Inert when prometheus_client is unavailable."""
+
+    def __init__(
+        self,
+        obs: bool = False,
+        lifecycle: bool = False,
+        tenant_qos: bool = False,
+        integrity: bool = False,
+    ):
+        """``obs``: build the latency-decomposition histograms and
+        engine-step telemetry series (``OBS_METRICS``). ``lifecycle``,
+        ``tenant_qos``, ``integrity``: build the block-lifecycle, tenant
+        SLO-burn and KV-integrity families. All off (default) keeps the
+        exposition surface bit-identical to the knobs-off JAX pod's.
+
+        Every family the JAX pod registers under these flags is registered
+        here, so the exposition lists the same families; the port feeds
+        only those whose producers it has (requests, admission, drain,
+        deadlines and aborts, the engine step telemetry, the host tier).
+        The speculative-decoding counters, the pull histograms and the SLO
+        burn gauge stay at zero, and the lifecycle, tenant and integrity
+        planes are not ported, so the pod leaves those three flags off and
+        their observers are not here."""
+        # Measured serving rates (EMAs over request completions), kept
+        # OUTSIDE the prometheus guard: admission control derives its
+        # Retry-After hint from them, with or without prometheus_client.
+        self.request_rate: Optional[float] = None  # finished requests / s
+        self.token_rate: Optional[float] = None  # generated tokens / s
+        self._last_finish: Optional[float] = None
+        self._obs = bool(obs)
+        self._lifecycle = bool(lifecycle)
+        self._tenant_qos = bool(tenant_qos)
+        self._integrity = bool(integrity)
+        try:
+            import prometheus_client as prom
+        except ImportError:  # pragma: no cover
+            self._prom = None
+            return
+        self._prom = prom
+        self.registry = prom.CollectorRegistry()
+        self.requests = prom.Counter(
+            "tpu_pod_requests_total", "Completed requests", registry=self.registry
+        )
+        self.generated = prom.Counter(
+            "tpu_pod_generated_tokens_total",
+            "Generated tokens",
+            registry=self.registry,
+        )
+        self.cached_prompt = prom.Counter(
+            "tpu_pod_cached_prompt_tokens_total",
+            "Prompt tokens served from the prefix cache",
+            registry=self.registry,
+        )
+        self.ttft = prom.Histogram(
+            "tpu_pod_ttft_seconds",
+            "Time to first token",
+            registry=self.registry,
+            buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30),
+        )
+        # Speculative decoding (engine.spec_stats mirrored as counters;
+        # acceptance rate = accepted/proposed).
+        self.spec_proposed = prom.Counter(
+            "tpu_pod_spec_proposed_tokens_total",
+            "Speculative tokens proposed",
+            registry=self.registry,
+        )
+        self.spec_accepted = prom.Counter(
+            "tpu_pod_spec_accepted_tokens_total",
+            "Speculative tokens accepted",
+            registry=self.registry,
+        )
+        self.spec_verify = prom.Counter(
+            "tpu_pod_spec_verify_steps_total",
+            "Speculative verify rounds",
+            registry=self.registry,
+        )
+        self.spec_bursts = prom.Counter(
+            "tpu_pod_spec_bursts_total",
+            "Speculative host-sync bursts (verify rounds per host sync = "
+            "verify_steps/bursts)",
+            registry=self.registry,
+        )
+        # Overload protection / request lifecycle: admission sheds,
+        # deadline expiries, aborts, drain activity.
+        self.admission_rejected = prom.Counter(
+            "kvcache_admission_rejected_total",
+            "Requests rejected by admission control (429)",
+            registry=self.registry,
+        )
+        self.admission_rejected_draining = prom.Counter(
+            "kvcache_admission_draining_rejected_total",
+            "Requests rejected because the pod was draining (503)",
+            registry=self.registry,
+        )
+        self.deadline_shed = prom.Counter(
+            "kvcache_admission_deadline_shed_total",
+            "Deadline-expired requests shed before any prefill compute",
+            registry=self.registry,
+        )
+        self.deadline_expired = prom.Counter(
+            "kvcache_admission_deadline_expired_total",
+            "Running requests finished early at their deadline",
+            registry=self.registry,
+        )
+        self.requests_aborted = prom.Counter(
+            "kvcache_admission_aborted_total",
+            "Requests aborted mid-flight (client disconnect/timeout)",
+            registry=self.registry,
+        )
+        self.drain_started = prom.Counter(
+            "kvcache_drain_started_total",
+            "Graceful drains started (SIGTERM / POST /drain)",
+            registry=self.registry,
+        )
+        self.drain_completed = prom.Counter(
+            "kvcache_drain_completed_total",
+            "Graceful drains completed with every inflight request finished",
+            registry=self.registry,
+        )
+        self.drain_forced = prom.Counter(
+            "kvcache_drain_forced_requests_total",
+            "Inflight requests aborted because the drain timeout expired",
+            registry=self.registry,
+        )
+        self._lifecycle_seen = {
+            "deadline_shed": 0, "deadline_expired": 0, "aborted": 0,
+        }
+        # Latency decomposition + engine-step telemetry: built only
+        # under OBS_METRICS so the default exposition stays unchanged.
+        if self._obs:
+            slo_buckets = (
+                0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+            )
+            # TTFT/ITL get a denser grid: a full sub-100 ms decade plus
+            # 0.15/0.2 splits of the old 0.1–0.25 gap, where a median
+            # inside one 2.5x-wide bucket moved more with bucket placement
+            # than with routing policy. queue/e2e/pull keep the legacy
+            # grid.
+            lat_buckets = (
+                0.001, 0.0025, 0.005, 0.0075, 0.01, 0.015, 0.02, 0.03,
+                0.04, 0.06, 0.08, 0.1, 0.15, 0.2, 0.25, 0.5, 1.0, 2.5,
+                5.0, 10.0, 30.0, 60.0,
+            )
+            req_labels = ["outcome", "finish"]
+            self.req_ttft = prom.Histogram(
+                "kvcache_request_ttft_seconds",
+                "Time to first token, by cache outcome (warm/pull/cold) "
+                "and finish reason",
+                req_labels, registry=self.registry, buckets=lat_buckets,
+            )
+            self.req_itl = prom.Histogram(
+                "kvcache_request_itl_seconds",
+                "Mean inter-token latency per request "
+                "((finish - first token) / (generated - 1))",
+                req_labels, registry=self.registry, buckets=lat_buckets,
+            )
+            self.req_queue = prom.Histogram(
+                "kvcache_request_queue_seconds",
+                "Submit-to-first-prefill-dispatch wait",
+                req_labels, registry=self.registry, buckets=slo_buckets,
+            )
+            self.req_e2e = prom.Histogram(
+                "kvcache_request_e2e_seconds",
+                "Submit-to-finish wall time",
+                req_labels, registry=self.registry, buckets=slo_buckets,
+            )
+            self.transfer_pull = prom.Histogram(
+                "kvcache_transfer_pull_seconds",
+                "pull_prefix wall time (fetch + import), by outcome "
+                "(ok/empty/failed)",
+                ["outcome"], registry=self.registry, buckets=slo_buckets,
+            )
+            self.pull_overlap = prom.Histogram(
+                "kvcache_transfer_pull_overlap_seconds",
+                "Async KV-pull (ASYNC_PULL) wall time split by exposure: "
+                "hidden = spent before the scheduler first wanted the "
+                "sequence (overlapped with other work), exposed = the "
+                "remainder (it delayed this sequence's prefill)",
+                ["kind"], registry=self.registry, buckets=slo_buckets,
+            )
+            self.engine_steps = prom.Counter(
+                "kvcache_engine_steps_total",
+                "Engine iterations",
+                registry=self.registry,
+            )
+            self.engine_phase_s = prom.Counter(
+                "kvcache_engine_step_phase_seconds_total",
+                "Cumulative engine-step wall seconds by phase (schedule/"
+                "prefill/decode/sample/gather/demote/publish; gather, "
+                "sample and demote overlap the dispatch phases). Host "
+                "clocks: on CUDA a graph replay's decode seconds are its "
+                "launch, and the wait for the device lands in sample",
+                ["phase"], registry=self.registry,
+            )
+            self.engine_occupancy = prom.Gauge(
+                "kvcache_engine_batch_occupancy",
+                "Running decode lanes / decode_batch_size",
+                registry=self.registry,
+            )
+            self.engine_free_pages = prom.Gauge(
+                "kvcache_engine_free_pages",
+                "Free KV pages in the HBM pool",
+                registry=self.registry,
+            )
+            self.engine_loop_lag = prom.Gauge(
+                "kvcache_engine_loop_lag_seconds",
+                "EMA of host-side gap between engine iterations while work "
+                "was pending (staging, bookkeeping, GIL pressure)",
+                registry=self.registry,
+            )
+            self._step_seen = dict.fromkeys(
+                (
+                    "schedule_s", "prefill_s", "decode_s", "sample_s",
+                    "gather_s", "demote_s", "publish_s",
+                ),
+                0.0,
+            )
+            self._steps_seen = 0
+            # Host-DRAM tier + prefetch: tier occupancy, pages
+            # served back from host DRAM (by path: ahead-of-scheduler
+            # prefetch vs blocking allocate), and prefetch-round wall time.
+            self.host_pages_g = prom.Gauge(
+                "kvcache_host_pages",
+                "KV blocks currently cached in the host-DRAM tier",
+                registry=self.registry,
+            )
+            self.host_hits = prom.Counter(
+                "kvcache_host_hits_total",
+                "KV blocks brought back from the host-DRAM tier, by path "
+                "(prefetch = ahead of the scheduler, allocate = blocking)",
+                ["path"], registry=self.registry,
+            )
+            self.host_prefetch_s = prom.Histogram(
+                "kvcache_host_prefetch_seconds",
+                "Host-tier prefetch round wall time (hash walk + restore "
+                "queueing; the DMA itself overlaps the step's dispatch)",
+                registry=self.registry, buckets=slo_buckets,
+            )
+            self._host_seen = {"restored": 0, "prefetched": 0}
+            # SLO burn rate: in-process evaluation of OBS_SLO
+            # objectives against the same measurements the request
+            # histograms observe; series appear only when an SLORecorder
+            # feeds them (scrape-driven sync).
+            self.slo_burn = prom.Gauge(
+                "kvcache_slo_burn_rate",
+                "Error-budget burn rate per OBS_SLO objective and sliding "
+                "window (1.0 = budget burns at exactly its sustainable "
+                "rate)",
+                ["objective", "window"], registry=self.registry,
+            )
+        # Block-lifecycle families (OBS_LIFECYCLE): tier
+        # transitions, per-tier residency, sampled reuse distance. Built
+        # only under the lifecycle knob so the default exposition surface
+        # stays unchanged; fed by the ledger/estimator callbacks.
+        if self._lifecycle:
+            self.block_transitions = prom.Counter(
+                "kvcache_block_tier_transitions_total",
+                "KV-block tier transitions recorded by the lifecycle "
+                "ledger: from/to in {none, tpu_hbm, host_dram, remote}, "
+                "reason = allocate/import/spill/restore/prefetch/demote "
+                "(hand-off to the pusher; corrected by demote_failed on "
+                "drop/failure)/evict",
+                ["from", "to", "reason"], registry=self.registry,
+            )
+            self.block_residency = prom.Histogram(
+                "kvcache_block_tier_residency_seconds",
+                "How long a KV block stayed resident in a tier before "
+                "leaving it (observed at departure)",
+                ["tier"], registry=self.registry,
+                buckets=(0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                         120.0, 300.0, 600.0, 1800.0, 3600.0),
+            )
+            self.reuse_distance = prom.Histogram(
+                "kvcache_reuse_distance_blocks",
+                "Sampled LRU stack distance of prefix-block lookups, in "
+                "blocks: P[distance < C] is the modeled hit rate of a "
+                "C-block tier (the MRC behind /debug/mrc); cold accesses "
+                "land in +Inf",
+                registry=self.registry,
+                buckets=tuple(
+                    float(b) for b in lifecycle_mod.REUSE_DISTANCE_BUCKETS
+                ),
+            )
+        # Tenant-sliced SLO burn (TENANT_QOS): same arithmetic as
+        # kvcache_slo_burn_rate over the recorder's per-tenant slices.
+        # Built only under the tenant knob so the default exposition
+        # surface stays unchanged; tenant label values are the serving
+        # layer's bounded slice keys, never raw header values.
+        if self._tenant_qos:
+            self.tenant_slo_burn = prom.Gauge(
+                "kvcache_tenant_slo_burn_rate",
+                "Error-budget burn rate per tenant, OBS_SLO objective and "
+                "sliding window (the per-tenant slice of "
+                "kvcache_slo_burn_rate; 1.0 = budget burns at exactly its "
+                "sustainable rate)",
+                ["tenant", "objective", "window"], registry=self.registry,
+            )
+        # KV-block integrity families (KV_INTEGRITY): built only
+        # under the knob so the default exposition surface stays
+        # unchanged; delta-synced from ``BlockIntegrity.stats`` on the
+        # engine loop.
+        if self._integrity:
+            self.integrity_checks = prom.Counter(
+                "kvcache_integrity_checks_total",
+                "KV-block content-digest checks at tier transitions, by "
+                "outcome (ok / corrupt / unverified = no recorded digest, "
+                "served on the legacy trust model)",
+                ["outcome"], registry=self.registry,
+            )
+            self.integrity_quarantined = prom.Counter(
+                "kvcache_integrity_quarantined_total",
+                "KV-block copies quarantined after a failed digest check "
+                "(chain truncated; suffix recomputed cold)",
+                registry=self.registry,
+            )
+            self.integrity_scrub_pages = prom.Counter(
+                "kvcache_integrity_scrub_pages_total",
+                "Resident host-tier slots verified by the background "
+                "integrity scrubber",
+                registry=self.registry,
+            )
+
+    def sync_step_stats(self, step_stats: dict, lag_s: Optional[float]) -> None:
+        """Mirror the engine's cumulative step-phase seconds into the
+        labeled counter (delta sync, as ``sync_lifecycle_stats``)."""
+        if self._prom is None or not self._obs:
+            return
+        steps = step_stats.get("steps", 0)
+        if steps > self._steps_seen:
+            self.engine_steps.inc(steps - self._steps_seen)
+            self._steps_seen = steps
+        for key, seen in self._step_seen.items():
+            delta = step_stats.get(key, 0.0) - seen
+            if delta > 0:
+                self.engine_phase_s.labels(phase=key[:-2]).inc(delta)
+                self._step_seen[key] = step_stats[key]
+        if lag_s is not None:
+            self.engine_loop_lag.set(lag_s)
+
+    def set_engine_gauges(self, occupancy: float, free_pages: int) -> None:
+        if self._prom is None or not self._obs:
+            return
+        self.engine_occupancy.set(occupancy)
+        self.engine_free_pages.set(free_pages)
+
+    def observe_host_prefetch(self, seconds: float) -> None:
+        if self._prom is None or not self._obs:
+            return
+        self.host_prefetch_s.observe(seconds)
+
+    def sync_host_stats(self, host_stats: dict, host_cached: int) -> None:
+        """Mirror the block manager's monotone host-tier counters (delta
+        sync, as ``sync_lifecycle_stats``). ``restored`` counts every
+        bring-back; the prefetch stage's share is broken out by label."""
+        if self._prom is None or not self._obs:
+            return
+        self.host_pages_g.set(host_cached)
+        d_pref = host_stats.get("prefetched", 0) - self._host_seen["prefetched"]
+        d_rest = host_stats.get("restored", 0) - self._host_seen["restored"]
+        if d_pref > 0:
+            self.host_hits.labels(path="prefetch").inc(d_pref)
+            self._host_seen["prefetched"] = host_stats["prefetched"]
+        d_alloc = d_rest - d_pref
+        if d_alloc > 0:
+            self.host_hits.labels(path="allocate").inc(d_alloc)
+        if d_rest > 0:
+            self._host_seen["restored"] = host_stats["restored"]
+
+    @staticmethod
+    def request_labels(seq: Sequence) -> tuple[str, str]:
+        """(outcome, finish) labels for the request histograms: outcome =
+        "pull" when the router's verdict was a transfer pull, else the
+        measured prefix-cache hit ("warm"/"cold"); finish = the
+        early-finish reason or the normal stop/length verdict."""
+        # Ground truth decides warm vs cold (a router that said "warm" on
+        # a cold fleet still ran a cold prefill here — the pod's
+        # histograms must agree with the scorer-side route_decisions
+        # correction in router.py, not with the router's optimism); only
+        # the "pull" verdict is kept as its own class.
+        if seq.route_action == "pull":
+            outcome = "pull"
+        else:
+            outcome = "warm" if seq.num_cached_prompt else "cold"
+        finish = seq.finish_reason
+        if finish is None:
+            finish = (
+                "length"
+                if seq.num_generated >= seq.sampling.max_new_tokens
+                else "stop"
+            )
+        return outcome, finish
+
+    def observe_request_decomposition(self, seq: Sequence) -> None:
+        """Latency-decomposition histograms from the timestamps the engine
+        already stamps (no extra clock reads on the hot path)."""
+        if self._prom is None or not self._obs:
+            return
+        outcome, finish = self.request_labels(seq)
+        lab = {"outcome": outcome, "finish": finish}
+        if seq.ttft is not None:
+            self.req_ttft.labels(**lab).observe(seq.ttft)
+        if seq.prefill_start_time is not None:
+            self.req_queue.labels(**lab).observe(
+                max(seq.prefill_start_time - seq.arrival_time, 0.0)
+            )
+        if seq.finish_time is not None:
+            self.req_e2e.labels(**lab).observe(
+                max(seq.finish_time - seq.arrival_time, 0.0)
+            )
+            if seq.mean_itl is not None:
+                self.req_itl.labels(**lab).observe(seq.mean_itl)
+
+    def sync_lifecycle_stats(self, stats: dict) -> None:
+        """Mirror the engine's monotone lifecycle counters (deadline sheds/
+        expiries, aborts) into Prometheus."""
+        if self._prom is None:
+            return
+        for key, counter in (
+            ("deadline_shed", self.deadline_shed),
+            ("deadline_expired", self.deadline_expired),
+            ("aborted", self.requests_aborted),
+        ):
+            delta = stats.get(key, 0) - self._lifecycle_seen[key]
+            if delta > 0:
+                counter.inc(delta)
+                self._lifecycle_seen[key] = stats[key]
+
+    def observe_rejected(self, draining: bool) -> None:
+        if self._prom is None:
+            return
+        if draining:
+            self.admission_rejected_draining.inc()
+        else:
+            self.admission_rejected.inc()
+
+    def observe_drain(self, event: str, amount: int = 1) -> None:
+        if self._prom is None:
+            return
+        counter = {
+            "started": self.drain_started,
+            "completed": self.drain_completed,
+            "forced": self.drain_forced,
+        }[event]
+        counter.inc(amount)
+
+    def observe_finished(self, seq: Sequence) -> None:
+        # Rate EMAs first (prometheus-independent): only requests that
+        # produced tokens feed them — a shed/aborted request finishing
+        # instantly would wildly overstate sustainable throughput.
+        if seq.num_generated > 0:
+            now = time.monotonic()
+            if self._last_finish is not None:
+                dt = max(now - self._last_finish, 1e-3)
+                alpha = 0.3
+                inst_r, inst_t = 1.0 / dt, seq.num_generated / dt
+                self.request_rate = (
+                    inst_r
+                    if self.request_rate is None
+                    else (1 - alpha) * self.request_rate + alpha * inst_r
+                )
+                self.token_rate = (
+                    inst_t
+                    if self.token_rate is None
+                    else (1 - alpha) * self.token_rate + alpha * inst_t
+                )
+            self._last_finish = now
+        if self._prom is None:
+            return
+        self.requests.inc()
+        self.generated.inc(seq.num_generated)
+        if seq.num_cached_prompt:
+            self.cached_prompt.inc(seq.num_cached_prompt)
+        if seq.ttft is not None:
+            self.ttft.observe(seq.ttft)
+        if self._obs:
+            self.observe_request_decomposition(seq)
+
+    def exposition(self) -> Optional[bytes]:
+        if self._prom is None:
+            return None
+        return self._prom.generate_latest(self.registry)
 
 
 def _env_bool(name: str, default: str) -> bool:
@@ -105,17 +664,51 @@ class PodServerConfig:
     async_pull: bool = False
     #: import worker threads for ASYNC_PULL (concurrent fetches)
     pull_workers: int = 2
+    # -- fleet self-healing (all off by default) ----------------------------
+    #: seconds between Heartbeat events (liveness beacon + publisher drop
+    #: report for the indexer's dead-pod sweep); 0 = no heartbeats.
+    heartbeat_interval_s: float = 0.0
+    #: seconds between periodic IndexSnapshot resyncs (replace-all-for-pod
+    #: digest of resident blocks per tier); 0 = no periodic resync.
+    resync_interval_s: float = 0.0
     #: transfer circuit breaker: consecutive pull failures per peer before
     #: pulls skip straight to cold prefill; 0 = off
     transfer_breaker_failures: int = 0
     #: first OPEN backoff; doubles per failed half-open probe (capped)
     transfer_breaker_backoff_s: float = 1.0
     transfer_breaker_backoff_max_s: float = 30.0
+    # -- overload protection / request lifecycle (all off by default) -------
+    #: admission control: max requests queued ahead of the engine (staged +
+    #: scheduler waiting). Above it ``submit`` fails fast with 429 +
+    #: ``Retry-After`` instead of queueing unboundedly. 0 = unbounded.
+    admission_max_waiting: int = 0
+    #: admission control: cap on outstanding admitted prompt tokens (a
+    #: conservative proxy for queued prefill work — it includes requests
+    #: currently in compute). 0 = unbounded.
+    admission_max_queued_tokens: int = 0
     #: default per-request deadline in seconds when the client sends no
     #: ``X-Request-Deadline`` header. Expired waiting requests are shed
     #: before prefill; running requests finish early with
     #: ``finish_reason="deadline"``. 0 = no deadline.
     default_deadline_s: float = 0.0
+    #: graceful drain: how long inflight requests get to finish after
+    #: SIGTERM / ``POST /drain`` before being aborted.
+    drain_timeout_s: float = 30.0
+    # -- observability (all off by default = the knobs-off responses,
+    # -- /stats fields and heartbeat wire bytes) ----------------------------
+    #: request tracing: span recorder + W3C traceparent propagation
+    #: (adopted from the ``traceparent`` request header); finished traces
+    #: served at ``GET /debug/traces``.
+    obs_tracing: bool = False
+    #: finished-span ring size for /debug/traces
+    obs_trace_buffer: int = 2048
+    #: latency-decomposition histograms (TTFT/ITL/queue/e2e) + engine-step
+    #: phase timing, batch-occupancy / free-page / loop-lag gauges on
+    #: /metrics, and an ``obs`` block on /stats.
+    obs_metrics: bool = False
+    #: directory for ``POST /debug/profile`` torch.profiler traces; unset =
+    #: the endpoint is disabled.
+    obs_profile_dir: Optional[str] = None
     engine: EngineConfig = field(default_factory=EngineConfig)
 
     @classmethod
@@ -138,6 +731,13 @@ class PodServerConfig:
         )
         cfg.async_pull = _env_bool("ASYNC_PULL", "0")
         cfg.pull_workers = int(os.environ.get("PULL_WORKERS", cfg.pull_workers))
+        # Fleet self-healing (0/unset = off).
+        cfg.heartbeat_interval_s = float(
+            os.environ.get("HEARTBEAT_INTERVAL_S", cfg.heartbeat_interval_s)
+        )
+        cfg.resync_interval_s = float(
+            os.environ.get("RESYNC_INTERVAL_S", cfg.resync_interval_s)
+        )
         cfg.transfer_breaker_failures = int(
             os.environ.get("TRANSFER_BREAKER_FAILURES", cfg.transfer_breaker_failures)
         )
@@ -147,9 +747,22 @@ class PodServerConfig:
         cfg.transfer_breaker_backoff_max_s = float(
             os.environ.get("TRANSFER_BREAKER_BACKOFF_MAX_S", cfg.transfer_breaker_backoff_max_s)
         )
+        # Overload protection / request lifecycle (0/unset = off).
+        cfg.admission_max_waiting = int(
+            os.environ.get("ADMISSION_MAX_WAITING", cfg.admission_max_waiting)
+        )
+        cfg.admission_max_queued_tokens = int(
+            os.environ.get("ADMISSION_MAX_QUEUED_TOKENS", cfg.admission_max_queued_tokens)
+        )
         cfg.default_deadline_s = float(
             os.environ.get("REQUEST_DEADLINE_S", cfg.default_deadline_s)
         )
+        cfg.drain_timeout_s = float(os.environ.get("DRAIN_TIMEOUT_S", cfg.drain_timeout_s))
+        # Observability (0/unset = off).
+        cfg.obs_tracing = _env_bool("OBS_TRACING", "0")
+        cfg.obs_trace_buffer = int(os.environ.get("OBS_TRACE_BUFFER", cfg.obs_trace_buffer))
+        cfg.obs_metrics = _env_bool("OBS_METRICS", "0")
+        cfg.obs_profile_dir = os.environ.get("OBS_PROFILE_DIR") or None
         eng = cfg.engine
         eng.block_manager = BlockManagerConfig(
             total_pages=int(os.environ.get("TOTAL_PAGES", 1024)),
@@ -214,6 +827,13 @@ class PodServer:
         self._tokenizer = tokenizer
         self._publisher = publisher
         self.transfer_cost_model = transfer_cost_model
+        #: request tracing (OBS_TRACING); a disabled tracer hands out one
+        #: shared no-op span, so the default request path allocates nothing.
+        self.tracer = Tracer(
+            enabled=self.config.obs_tracing,
+            max_spans=self.config.obs_trace_buffer,
+            service=f"pod:{self.config.pod_identifier}",
+        )
         if self._publisher is None and self.config.publish_events:
             self._publisher = ZMQPublisher(
                 ZMQPublisherConfig(
@@ -229,19 +849,43 @@ class PodServer:
         )
         if engine is not None and on_events is not None:
             self.engine.block_manager.on_events = on_events
+        if self.config.obs_metrics:
+            self.engine.obs_step_timing = True
 
         #: HTTP threads only touch the staging deques; the engine itself is
         #: single-threaded (loop thread only).
         self._mu = threading.Lock()
         self._work = threading.Condition(self._mu)
-        #: staged requests: (tokens, sampling, deadline, rid, future, pull)
+        #: staged requests: (tokens, sampling, deadline, rid, future, span,
+        #: route_action, pull)
         self._staging: deque[tuple] = deque()  # guarded_by: _mu|_work
         #: staged aborts: (request_id | None = all, future -> bool)
         self._aborts: deque[tuple[Optional[str], Future]] = deque()  # guarded_by: _mu|_work
         self._futures: dict[int, Future] = {}  # loop-thread-only
+        #: admission accounting (under _mu): requests admitted by submit
+        #: whose futures have not resolved yet, and their prompt tokens.
+        self._pending = 0  # guarded_by: _mu|_work
+        self._pending_tokens = 0  # guarded_by: _mu|_work
+        self.admission_rejected = 0  # guarded_by: _mu|_work
+        self.admission_rejected_draining = 0  # guarded_by: _mu|_work
+        #: graceful drain state
+        self._draining = False  # guarded_by: _mu|_work
+        self._drain_done = threading.Event()
+        self._drain_clean: Optional[bool] = None
+        self.drains_started = 0  # guarded_by: _mu|_work
+        self.drain_forced_requests = 0  # guarded_by: _mu|_work
+        self.metrics = _ServingMetrics(obs=self.config.obs_metrics)
         self._running = False  # guarded_by: _mu|_work
         self._failed: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
+        #: engine-loop lag EMA (OBS_METRICS): host-side gap between the end
+        #: of one iteration and the start of the next while work was
+        #: pending — the "how far behind the device is the loop" signal.
+        self._loop_lag_s: Optional[float] = None
+        self._loop_prev_end: Optional[float] = None
+        self._loop_had_work = False
+        #: /debug/profile serialization (one capture at a time)
+        self._profile_mu = threading.Lock()
 
         # -- cross-pod KV transfer plane (off unless configured) -----------
         # Exports and imports stage onto the engine loop, the only thread
@@ -271,6 +915,14 @@ class PodServer:
         self.async_pulls = 0  # landed >= 1 block  # guarded_by: _mu|_work
         self.async_pull_fallbacks = 0  # -> cold prefill  # guarded_by: _mu|_work
         self.async_pull_canceled = 0  # seq died mid-fetch  # guarded_by: _mu|_work
+        # -- fleet self-healing (heartbeats + periodic resync) --------------
+        # Digest reads hop onto the engine loop like exports/imports: page
+        # bookkeeping is engine-loop-owned state.
+        self._digest_requests: deque[Future] = deque()  # guarded_by: _mu|_work
+        self.heartbeats_published = 0  # guarded_by: _mu|_work
+        self.snapshots_published = 0  # guarded_by: _mu|_work
+        self._self_heal_stop = threading.Event()
+        self._self_heal_thread: Optional[threading.Thread] = None
         if self.config.transfer_endpoint:
             self._transfer_service = KVTransferService(
                 TransferServiceConfig(
@@ -279,6 +931,7 @@ class PodServer:
                     max_blocks=self.config.transfer_max_blocks,
                 ),
                 handler=self._serve_export,
+                tracer=self.tracer,
             )
 
     # -- lifecycle ----------------------------------------------------------
@@ -293,8 +946,139 @@ class PodServer:
         self._thread.start()
         if self._transfer_service is not None:
             self._transfer_service.start()
+        if self._publisher is not None and (
+            self.config.heartbeat_interval_s > 0 or self.config.resync_interval_s > 0
+        ):
+            self._self_heal_stop.clear()
+            self._self_heal_thread = threading.Thread(
+                target=self._self_heal_loop, name="self-heal", daemon=True
+            )
+            self._self_heal_thread.start()
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Graceful drain for rolling restarts. Flips the pod to draining
+        (new submits raise ``DrainingError`` → 503; ``/healthz`` turns 503
+        so k8s readiness agrees; heartbeats advertise ``draining`` so the
+        scorer stops picking this pod immediately), lets inflight requests
+        finish for up to ``drain_timeout_s``, aborts whatever is left
+        (their futures resolve with the partial sequence,
+        ``finish_reason="abort"``; the abort first commits an in-flight
+        pipelined decode burst, so no freed page is still being written),
+        then publishes a final ``IndexSnapshot`` plus the ``PodDrained``
+        goodbye — the fleet evicts this pod's entries at once instead of
+        waiting out ``POD_TTL_S``. The engine loop stays up so ``/stats``
+        remains queryable until the process exits (``shutdown`` still
+        applies). Idempotent: concurrent calls wait for the first drain.
+        Returns True when every inflight request finished within the
+        budget."""
+        with self._work:
+            first = not self._draining
+            if first:
+                self._draining = True
+                self.drains_started += 1
+        if not first:
+            self._drain_done.wait()
+            return bool(self._drain_clean)
+        self.metrics.observe_drain("started")
+        log.warning(
+            "drain started",
+            pod=self.config.pod_identifier,
+            timeout_s=timeout_s or self.config.drain_timeout_s,
+        )
+        # Advertise NOW, not at the next heartbeat tick: every second of
+        # stale routing sends this pod prefixes it is about to evict.
+        if self.config.heartbeat_interval_s > 0:
+            self._publish_heartbeat()
+        budget = self.config.drain_timeout_s if timeout_s is None else timeout_s
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            with self._mu:
+                if self._pending == 0:
+                    break
+            time.sleep(0.02)
+        with self._mu:
+            leftover = self._pending
+        clean = leftover == 0
+        if not clean:
+            # Wedged clients / runaway generations past the budget: abort
+            # them (pages released, futures resolve with partial output)
+            # rather than holding the rolling restart hostage.
+            with self._mu:
+                self.drain_forced_requests += leftover
+            self.metrics.observe_drain("forced", leftover)
+            log.error(
+                "drain timeout; aborting inflight requests",
+                leftover=leftover,
+                timeout_s=budget,
+            )
+            try:
+                self.abort(None).result(timeout=30)
+            except Exception:
+                log.exception("drain abort-all failed")
+        # Final goodbye, ordered: the snapshot (engine-loop read, so it
+        # reflects post-abort truth) lands before PodDrained evicts the
+        # pod — consumers without PodDrained support still get a truthful
+        # final view instead of a stale one.
+        if self._publisher is not None:
+            self.publish_index_snapshot(timeout_s=30.0, wait=True)
+            try:
+                self._publisher.publish([PodDrained()])
+            except Exception:
+                log.exception("PodDrained publish failed")
+        self._drain_clean = clean
+        if clean:
+            self.metrics.observe_drain("completed")
+        self._drain_done.set()
+        log.warning("drain complete", pod=self.config.pod_identifier, clean=clean)
+        return clean
+
+    @property
+    def is_draining(self) -> bool:
+        with self._mu:
+            return self._draining
+
+    @property
+    def is_alive(self) -> bool:
+        """Running with a healthy engine — the planner's ``dead`` signal
+        (one locked read; the fleet view must not see a torn state)."""
+        with self._mu:
+            return self._running and self._failed is None
+
+    @property
+    def queue_depth(self) -> int:
+        """Outstanding work — the router's load signal and the decode
+        tier's ITL-headroom signal: the requests ``submit`` admitted whose
+        futures have not resolved (staged, waiting, prefilling or
+        running), read under the lock that counts them, so a request
+        counts from the moment ``submit`` returns until its future
+        resolves. The JAX pod sums len() snapshots of the staging deque
+        and the scheduler's lists instead, which miss a request while the
+        engine loop moves it from staging into the scheduler: routes sent
+        back to back then read 0 and pile onto one pod."""
+        with self._mu:
+            return self._pending
+
+    @property
+    def prefill_rate(self) -> Optional[float]:
+        """Measured prefill tokens/s (the engine's online EMA; None until
+        the first prefill) — the planner's prefill-hop speed signal."""
+        return self.engine._prefill_rate
+
+    @property
+    def open_breaker_endpoints(self) -> set:
+        """Transfer endpoints this pod currently holds an OPEN circuit
+        breaker for — a pull through them would skip straight to cold."""
+        return {
+            endpoint
+            for endpoint, client in self._transfer_pool.clients().items()
+            if client.breaker is not None and client.breaker.state == "open"
+        }
 
     def shutdown(self) -> None:
+        self._self_heal_stop.set()
+        if self._self_heal_thread is not None:
+            self._self_heal_thread.join(timeout=5)
+            self._self_heal_thread = None
         if self._transfer_service is not None:
             self._transfer_service.shutdown()
         with self._mu:
@@ -322,16 +1106,24 @@ class PodServer:
             self._staging.clear()
             aborts = list(self._aborts)
             self._aborts.clear()
-            transfers = list(self._transfer_exports) + list(self._transfer_imports)
+            transfers = (
+                list(self._transfer_exports)
+                + list(self._transfer_imports)
+                + [(fut,) for fut in self._digest_requests]
+            )
             self._transfer_exports.clear()
             self._transfer_imports.clear()
+            self._digest_requests.clear()
             self._import_dones.clear()
             jobs = list(self._pull_jobs.values())
             self._pull_jobs.clear()
+            self._pending = 0
+            self._pending_tokens = 0
         for job in jobs:
             job["cancel"].set()
-        for item in staged:
-            fut = item[4]
+        for _, _, _, _, fut, span, _, _ in staged:
+            span.set_attr("error", str(exc))
+            span.end()
             if not fut.done():
                 fut.set_exception(exc)
         for _, afut in aborts:
@@ -346,16 +1138,75 @@ class PodServer:
                 fut.set_exception(exc)
         self._futures.clear()
 
+    def _forget_pending(self, n_tokens: int) -> None:
+        """Release one request's admission accounting (engine loop only)."""
+        with self._mu:
+            self._pending = max(self._pending - 1, 0)
+            self._pending_tokens = max(self._pending_tokens - n_tokens, 0)
+
     def _resolve(self, seq: Sequence) -> None:
+        """Resolve a finished/aborted sequence's future and release its
+        admission accounting (engine loop only)."""
         with self._mu:
             job = self._pull_jobs.pop(seq.seq_id, None)
         if job is not None:
             # Aborted or shed while its import was in flight: the fetch
             # cannot be recalled, but the worker installs nothing.
             job["cancel"].set()
+        self.metrics.observe_finished(seq)
+        if seq.trace_span is not None:
+            self._emit_request_spans(seq)
         fut = self._futures.pop(seq.seq_id, None)
-        if fut is not None and not fut.done():
-            fut.set_result(seq)
+        if fut is not None:
+            self._forget_pending(seq.user_prompt_len)
+            if not fut.done():
+                fut.set_result(seq)
+
+    def _emit_request_spans(self, seq: Sequence) -> None:
+        """End the request span and reconstruct its queue/prefill/decode
+        children from the timestamps the engine already stamps — zero
+        per-token tracing cost; the whole decomposition is derived once at
+        request completion."""
+        span, seq.trace_span = seq.trace_span, None
+        if span.context is None:  # noop span (tracing off)
+            return
+        end = seq.finish_time if seq.finish_time is not None else time.monotonic()
+        if seq.prefill_start_time is not None:
+            self.tracer.record_span(
+                "pod.queue", span, span.start_mono, seq.prefill_start_time
+            )
+            prefill_end = (
+                seq.first_token_time if seq.first_token_time is not None else end
+            )
+            self.tracer.record_span(
+                "pod.prefill",
+                span,
+                seq.prefill_start_time,
+                prefill_end,
+                attrs={
+                    "cached_prompt_tokens": seq.num_cached_prompt,
+                    "prompt_tokens": seq.user_prompt_len,
+                },
+            )
+            if seq.first_token_time is not None and seq.num_generated > 1:
+                self.tracer.record_span(
+                    "pod.decode",
+                    span,
+                    seq.first_token_time,
+                    end,
+                    attrs={"generated_tokens": seq.num_generated},
+                )
+        else:
+            # Never reached prefill (shed/aborted while queued): the whole
+            # life was queueing.
+            self.tracer.record_span("pod.queue", span, span.start_mono, end)
+        outcome, finish = _ServingMetrics.request_labels(seq)
+        span.set_attr("outcome", outcome)
+        span.set_attr("finish", finish)
+        span.set_attr("generated_tokens", seq.num_generated)
+        if seq.error:
+            span.set_attr("error", seq.error)
+        span.end(end_mono=end)
 
     def _engine_loop(self) -> None:
         try:
@@ -369,6 +1220,7 @@ class PodServer:
                         or self._aborts
                         or self._transfer_exports
                         or self._transfer_imports
+                        or self._digest_requests
                         or self._import_dones
                         or self.engine.has_ready_work
                     ):
@@ -383,8 +1235,17 @@ class PodServer:
                     self._transfer_exports.clear()
                     imports = list(self._transfer_imports)
                     self._transfer_imports.clear()
+                    digests = list(self._digest_requests)
+                    self._digest_requests.clear()
                     import_dones = list(self._import_dones)
                     self._import_dones.clear()
+                # Digests first: the snapshot callback publishes here, on
+                # the engine loop, ordered with the KV-event stream.
+                for fut in digests:
+                    try:
+                        fut.set_result(self.engine.block_digest())
+                    except Exception as e:
+                        fut.set_exception(e)
                 # Imports land before admissions, so a request staged after
                 # its pull (pull_prefix, then submit) sees the warm pages.
                 for blocks, src_pod, fut in imports:
@@ -401,43 +1262,191 @@ class PodServer:
                 # step its pages are committed.
                 for seq in import_dones:
                     seq.importing = False
-                for tokens, sampling, deadline, rid, fut, pull in staged:
+                for tokens, sampling, deadline, rid, fut, span, action, pull in staged:
                     try:
                         seq = self.engine.add_request(
                             tokens, sampling, request_id=rid, deadline=deadline
                         )
                     except ValueError as e:
+                        self._forget_pending(len(tokens))
+                        span.set_attr("error", str(e))
+                        span.end()
                         # A disconnected client may have cancelled the future.
                         if not fut.done():
                             fut.set_exception(e)
                         continue
+                    seq.trace_span = span if span.context is not None else None
+                    seq.route_action = action
                     self._futures[seq.seq_id] = fut
                     if pull is not None:
                         self._start_async_pull(seq, pull)
                 # Aborts AFTER admissions: a submit-then-abort staged in the
                 # same cycle must find its sequence in the engine.
                 for rid, afut in aborts:
-                    seqs = (
-                        self.engine.abort_all()
-                        if rid is None
-                        else list(filter(None, [self.engine.abort(rid)]))
-                    )
+                    try:
+                        # abort/abort_all commit an in-flight pipelined burst
+                        # first: no page freed here is still being written.
+                        seqs = (
+                            self.engine.abort_all()
+                            if rid is None
+                            else list(filter(None, [self.engine.abort(rid)]))
+                        )
+                    except Exception as e:
+                        afut.set_exception(e)
+                        continue
                     for seq in seqs:
                         self._resolve(seq)
                     afut.set_result(bool(seqs))
+                if aborts:
+                    # An idle engine may not step again for a while; the
+                    # abort counters must not lag until it does.
+                    self.metrics.sync_lifecycle_stats(self.engine.lifecycle_stats)
                 if self.engine.has_ready_work:
-                    for seq in self.engine.step():
-                        self._resolve(seq)
+                    obs = self.config.obs_metrics
+                    if obs:
+                        t_start = time.perf_counter()
+                        if self._loop_had_work and self._loop_prev_end is not None:
+                            # Lag only counts gaps while work was pending at
+                            # the previous iteration's end — idle waits are
+                            # not loop lag.
+                            sample = max(t_start - self._loop_prev_end, 0.0)
+                            self._loop_lag_s = (
+                                sample
+                                if self._loop_lag_s is None
+                                else 0.7 * self._loop_lag_s + 0.3 * sample
+                            )
+                    finished = self.engine.step()
+                    lp = self.engine.last_prefetch
+                    if lp is not None:
+                        # Host-tier bring-back ran ahead of the scheduler
+                        # this step: one span + one histogram sample per
+                        # prefetch round (noop with both OBS_* knobs off).
+                        self.engine.last_prefetch = None
+                        pages, t0, t1 = lp
+                        self.metrics.observe_host_prefetch(t1 - t0)
+                        self.tracer.record_span(
+                            "pod.host_bringback",
+                            None,
+                            t0,
+                            t1,
+                            attrs={"pages": pages, "pod": self.config.pod_identifier},
+                        )
                     if self.transfer_cost_model is not None and self.engine._prefill_rate:
                         # The transfer decision's prefill rate: the engine's
                         # own online EMA, re-pinned every step.
                         self.transfer_cost_model.seed_rates(
                             prefill_tokens_s=self.engine._prefill_rate
                         )
+                    self.metrics.sync_lifecycle_stats(self.engine.lifecycle_stats)
+                    if obs:
+                        self._loop_prev_end = time.perf_counter()
+                        self._loop_had_work = self.engine.has_ready_work
+                        sch = self.engine.scheduler
+                        self.metrics.sync_step_stats(self.engine.step_stats, self._loop_lag_s)
+                        self.metrics.set_engine_gauges(
+                            len(sch.running) / max(self.config.engine.decode_batch_size, 1),
+                            self.engine.block_manager.num_free,
+                        )
+                        if self.config.engine.block_manager.host_pages:
+                            bm = self.engine.block_manager
+                            self.metrics.sync_host_stats(bm.host_stats, bm.num_host_cached_pages)
+                    for seq in finished:
+                        self._resolve(seq)
         except Exception as e:  # engine wedged: fail fast and visibly
             log.exception("engine loop died")
             self._failed = f"{type(e).__name__}: {e}"
             self._fail_outstanding(RuntimeError(f"engine failed: {self._failed}"))
+
+    # -- fleet self-healing --------------------------------------------------
+    def _self_heal_loop(self) -> None:
+        """Heartbeat / periodic-resync publisher. Runs only when a knob is
+        enabled; all failures are swallowed — self-healing must never take
+        a serving pod down."""
+        hb = self.config.heartbeat_interval_s
+        rs = self.config.resync_interval_s
+        tick = min(x for x in (hb, rs) if x > 0)
+        next_hb = 0.0 if hb > 0 else float("inf")
+        # First snapshot goes out after one full interval: at process start
+        # the digest is empty and the normal event stream covers warm-up.
+        now = time.monotonic()
+        next_rs = now + rs if rs > 0 else float("inf")
+        while not self._self_heal_stop.wait(min(tick, 0.25)):
+            now = time.monotonic()
+            if now >= next_hb:
+                next_hb = now + hb
+                self._publish_heartbeat()
+            if now >= next_rs:
+                next_rs = now + rs
+                # Fire-and-forget: the snapshot publishes from the engine
+                # loop when the digest resolves. Blocking here would starve
+                # heartbeats behind a long device step — a slow resync must
+                # never make a live pod look dead.
+                self.publish_index_snapshot(wait=False)
+
+    def _publish_heartbeat(self) -> None:
+        """One ``Heartbeat`` from this thread (the self-heal thread or a
+        drain): the publisher serialises its socket under its own lock.
+        Role and headroom stay None, so the bytes are the legacy bytes."""
+        if self._publisher is None:
+            return
+        # Flag read under the lock; the (bounded-blocking) publish stays
+        # outside it so a retrying socket never convoys submit/drain.
+        with self._mu:
+            draining = self._draining
+        try:
+            self._publisher.publish(
+                [
+                    Heartbeat(
+                        dropped_batches=getattr(self._publisher, "dropped_batches", 0),
+                        draining=draining,
+                    )
+                ]
+            )
+            with self._mu:
+                self.heartbeats_published += 1
+        except Exception:
+            log.exception("heartbeat publish failed")
+
+    def publish_index_snapshot(self, timeout_s: float = 30.0, wait: bool = True) -> bool:
+        """Emit an ``IndexSnapshot`` resync. The digest is read AND
+        published on the engine loop (digest-future callback), so no
+        ``BlockStored``/``BlockRemoved`` the loop emits can interleave
+        between reading the digest and shipping it — a stale snapshot
+        would silently wipe the interleaved event from the index. Callable
+        on demand (e.g. after the indexer flags this pod suspect) and
+        periodically via ``RESYNC_INTERVAL_S`` (which passes ``wait=False``
+        so a slow engine step can't starve heartbeats)."""
+        if self._publisher is None:
+            return False
+        done: Future = Future()
+
+        def on_digest(f: Future) -> None:
+            # Runs where the future is settled: the engine loop (ordered
+            # with the event stream) or the failure path.
+            try:
+                digest = f.result()
+                self._publisher.publish([IndexSnapshot(blocks_by_medium=digest)])
+                with self._mu:
+                    self.snapshots_published += 1
+                done.set_result(True)
+            except Exception:
+                log.exception("index snapshot publish failed")
+                done.set_result(False)
+
+        fut: Future = Future()
+        fut.add_done_callback(on_digest)
+        with self._work:
+            if not self._running or self._failed is not None:
+                return False
+            self._digest_requests.append(fut)
+            self._work.notify()
+        if not wait:
+            return True
+        try:
+            return done.result(timeout=timeout_s)
+        except Exception:
+            log.exception("index snapshot publish timed out")
+            return False
 
     # -- cross-pod KV transfer ----------------------------------------------
     def _observe_transfer_sample(self, n_bytes: int, seconds: float) -> None:
@@ -652,7 +1661,58 @@ class PodServer:
                     self.async_pull_fallbacks += 1
             self._finish_async_pull(seq)
 
-    # -- request API --------------------------------------------------------
+    # -- request path -------------------------------------------------------
+    def _retry_after_s(self, depth: int, queued_tokens: int) -> float:
+        """Retry-After hint from the measured serving rates: time to drain
+        the queue at the observed request-completion rate, falling back to
+        queued prefill work over the engine's online prefill-rate EMA.
+        Floored at 1 s (sub-second retries just re-overload) and capped at
+        60 s (past that the estimate is noise; the client should re-route).
+        """
+        est = None
+        if self.metrics.request_rate:
+            est = depth / self.metrics.request_rate
+        elif self.engine._prefill_rate and queued_tokens:
+            est = queued_tokens / self.engine._prefill_rate
+        return float(min(max(est if est is not None else 1.0, 1.0), 60.0))
+
+    def _check_admission(self, n_tokens: int) -> None:  # kvlint: holds=_work
+        """Admission control (caller holds ``_mu``): reject fast — before
+        the request touches the engine — when the configured queue-depth or
+        queued-token cap would be exceeded. Both caps off (0) = unbounded
+        admission. The JAX pod's per-tenant budgets (``TENANT_QOS``) are
+        checked first there; the port has no tenant QoS yet, so that
+        branch is left out."""
+        cfg = self.config
+        if cfg.admission_max_waiting <= 0 and cfg.admission_max_queued_tokens <= 0:
+            return
+        sch = self.engine.scheduler
+        # len() snapshots of engine-owned lists: momentarily stale is fine,
+        # admission is a load shedder, not an exact semaphore.
+        active = len(sch.running) + len(sch.prefilling)
+        depth = max(self._pending - active, 0)
+        queued_tokens = self._pending_tokens
+        if cfg.admission_max_waiting > 0 and depth >= cfg.admission_max_waiting:
+            self.admission_rejected += 1
+            self.metrics.observe_rejected(draining=False)
+            raise AdmissionError(
+                f"overloaded: {depth} requests waiting >= "
+                f"ADMISSION_MAX_WAITING={cfg.admission_max_waiting}",
+                self._retry_after_s(depth, queued_tokens),
+            )
+        if (
+            cfg.admission_max_queued_tokens > 0
+            and queued_tokens + n_tokens > cfg.admission_max_queued_tokens
+        ):
+            self.admission_rejected += 1
+            self.metrics.observe_rejected(draining=False)
+            raise AdmissionError(
+                f"overloaded: {queued_tokens} + {n_tokens} queued prompt "
+                f"tokens > ADMISSION_MAX_QUEUED_TOKENS="
+                f"{cfg.admission_max_queued_tokens}",
+                self._retry_after_s(depth, queued_tokens),
+            )
+
     def submit(
         self,
         prompt_tokens: list[int],
@@ -660,15 +1720,26 @@ class PodServer:
         *,
         deadline_s: Optional[float] = None,
         request_id: Optional[str] = None,
+        trace_ctx=None,
+        route_action: Optional[str] = None,
         pull_source: Optional[str] = None,
     ) -> Future:
         """Enqueue a request; the Future resolves to the finished Sequence
-        (or raises: invalid request, engine failure, shutdown). It carries
-        ``request_id`` for ``abort``. ``pull_source``: a peer's transfer
-        endpoint whose warm prefix this request should import; honoured
-        only with ``async_pull`` on (the request then waits ``importing``
-        while a worker fetches it; any failure means cold prefill), ignored
-        otherwise."""
+        (or raises: invalid request, engine failure, shutdown). Raises
+        ``AdmissionError`` when over the admission caps (fast 429 — never
+        touches the engine) and ``DrainingError`` while draining (503).
+        ``deadline_s``: per-request deadline budget in seconds (falls back
+        to ``default_deadline_s``; 0/None = none). The returned Future
+        carries ``request_id`` for ``abort``. ``trace_ctx`` (an
+        ``obs.tracing.SpanContext``, e.g. parsed from a ``traceparent``
+        header): parent for this request's spans — with tracing enabled
+        the pod mints its own trace when None. ``route_action``: the
+        router's verdict ("route_warm"/"pull"/"cold") labelling the latency
+        histograms; None derives warm/cold from the prefix-cache hit.
+        ``pull_source``: a peer's transfer endpoint whose warm prefix this
+        request should import; honoured only with ``async_pull`` on (the
+        request then waits ``importing`` while a worker fetches it; any
+        failure means cold prefill), ignored otherwise."""
         if not prompt_tokens:
             raise ValueError("empty prompt")
         if deadline_s is None and self.config.default_deadline_s > 0:
@@ -678,16 +1749,36 @@ class PodServer:
             if deadline_s is not None and deadline_s > 0
             else None
         )
+        rid = request_id or str(uuid.uuid4())
         fut: Future = Future()
-        fut.request_id = request_id or str(uuid.uuid4())
-        pull = pull_source if pull_source and self.config.async_pull else None
+        fut.request_id = rid
         with self._work:
             if self._failed is not None:
                 raise RuntimeError(f"engine failed: {self._failed}")
             if not self._running:
                 raise RuntimeError("pod server not running")
+            if self._draining:
+                self.admission_rejected_draining += 1
+                self.metrics.observe_rejected(draining=True)
+                raise DrainingError("pod is draining; retry against another pod")
+            self._check_admission(len(prompt_tokens))
+            # The span starts at submit (queueing time includes staging),
+            # after the reject paths — a 429/503 is not a served request.
+            span = self.tracer.start_span(
+                "pod.request",
+                parent=trace_ctx,
+                attrs={
+                    "request_id": rid,
+                    "pod": self.config.pod_identifier,
+                    "prompt_tokens": len(prompt_tokens),
+                },
+            )
+            fut.trace_context = span.context
+            self._pending += 1
+            self._pending_tokens += len(prompt_tokens)
+            pull = pull_source if pull_source and self.config.async_pull else None
             self._staging.append(
-                (list(prompt_tokens), sampling, deadline, fut.request_id, fut, pull)
+                (list(prompt_tokens), sampling, deadline, rid, fut, span, route_action, pull)
             )
             self._work.notify()
         return fut
@@ -778,6 +1869,16 @@ class PodServer:
                         {"error": "invalid X-Request-Deadline (want seconds > 0)"},
                         status=400,
                     )
+            # W3C trace propagation: adopt the caller's traceparent (the
+            # scoring service / router minted it) so this pod's spans join
+            # the request's fleet-wide trace. Parsed only when tracing is
+            # on — the off path reads no headers it didn't before.
+            trace_ctx = None
+            if self.tracer.enabled:
+                trace_ctx = parse_traceparent(request.headers.get("traceparent"))
+            route_action = request.headers.get("X-Route-Action")
+            if route_action not in ("route_warm", "pull", "cold"):
+                route_action = None
             # The router names the warm peer in X-Pull-Source; read only
             # with ASYNC_PULL on.
             pull_source = (
@@ -785,22 +1886,36 @@ class PodServer:
             )
             try:
                 fut = self.submit(
-                    token_ids, sampling, deadline_s=deadline_s, pull_source=pull_source
+                    token_ids,
+                    sampling,
+                    deadline_s=deadline_s,
+                    trace_ctx=trace_ctx,
+                    route_action=route_action,
+                    pull_source=pull_source,
                 )
+            except AdmissionError as e:  # overloaded: fast 429, engine untouched
+                return admission_reject_response(web, e)
+            except DrainingError as e:  # rolling restart: go elsewhere
+                return web.json_response({"error": str(e)}, status=503)
             except ValueError as e:
                 return web.json_response({"error": str(e)}, status=400)
             except RuntimeError as e:  # engine failure / shutdown
                 return web.json_response({"error": str(e)}, status=503)
-            try:
-                seq = await asyncio.wrap_future(fut)
-            except asyncio.CancelledError:
-                # Client disconnected: free the sequence's pages.
-                self.abort(fut.request_id)
-                raise
-            except ValueError as e:  # rejected by engine admission checks
-                return web.json_response({"error": str(e)}, status=400)
-            except RuntimeError as e:
-                return web.json_response({"error": str(e)}, status=503)
+            ctx = getattr(fut, "trace_context", None)
+            with log_context(
+                request_id=fut.request_id,
+                trace_id=ctx.trace_id if ctx is not None else None,
+            ):
+                try:
+                    seq = await asyncio.wrap_future(fut)
+                except asyncio.CancelledError:
+                    # Client disconnected: free the sequence's pages.
+                    self.abort(fut.request_id)
+                    raise
+                except ValueError as e:  # rejected by engine admission checks
+                    return web.json_response({"error": str(e)}, status=400)
+                except RuntimeError as e:  # engine failure / shutdown / drain
+                    return web.json_response({"error": str(e)}, status=503)
             if seq.error:
                 return web.json_response({"error": seq.error}, status=500)
 
@@ -815,6 +1930,9 @@ class PodServer:
                     log.warning("decode failed", error=repr(e))
             stopped = bool(out_tokens) and out_tokens[-1] in sampling.stop_token_ids
             finish_reason = seq.finish_reason or ("stop" if stopped else "length")
+            # traceparent echo ONLY when tracing is on: with knobs off the
+            # response (body AND headers) is the legacy one.
+            headers = {"traceparent": format_traceparent(ctx)} if ctx is not None else None
             return web.json_response(
                 {
                     "id": seq.request_id,
@@ -834,7 +1952,8 @@ class PodServer:
                         "cached_prompt_tokens": seq.num_cached_prompt,
                     },
                     "ttft_s": seq.ttft,
-                }
+                },
+                headers=headers,
             )
 
         async def healthz(_request: web.Request) -> web.Response:
@@ -842,12 +1961,244 @@ class PodServer:
                 return web.json_response(
                     {"status": "failed", "error": self._failed}, status=503
                 )
+            with self._mu:
+                draining = self._draining
+            if draining:
+                # k8s readiness must agree with admission: a draining pod
+                # takes no new traffic.
+                return web.json_response({"status": "draining"}, status=503)
             return web.json_response({"status": "ok"})
+
+        async def drain_endpoint(_request: web.Request) -> web.Response:
+            """Operator-triggered graceful drain (same path as SIGTERM).
+            Returns immediately; poll /stats (drain block) or /healthz for
+            progress. Idempotent."""
+            threading.Thread(target=self.drain, name="drain", daemon=True).start()
+            return web.json_response(
+                {"status": "draining", "drain_timeout_s": self.config.drain_timeout_s},
+                status=202,
+            )
+
+        async def stats(_request: web.Request) -> web.Response:
+            bm = self.engine.block_manager
+            with self._mu:
+                # One consistent cut of everything _mu guards.
+                staged = len(self._staging)
+                pending = self._pending
+                pending_tokens = self._pending_tokens
+                clients = self._transfer_pool.clients()
+                breakers = {
+                    ep: client.breaker.snapshot()
+                    for ep, client in clients.items()
+                    if client.breaker is not None
+                }
+                breaker_skips = sum(client.breaker_skips for client in clients.values())
+                pulls = self.transfer_pulls
+                pull_failures = self.transfer_pull_failures
+                heartbeats_published = self.heartbeats_published
+                snapshots_published = self.snapshots_published
+                rejected = self.admission_rejected
+                rejected_draining = self.admission_rejected_draining
+                draining = self._draining
+                drains_started = self.drains_started
+                drain_forced = self.drain_forced_requests
+                importing = len(self._pull_jobs)
+                async_pulls = self.async_pulls
+                async_fallbacks = self.async_pull_fallbacks
+                async_canceled = self.async_pull_canceled
+            payload = {
+                "pod": self.config.pod_identifier,
+                "model": self.config.model_name,
+                "data_parallel_rank": self.config.data_parallel_rank,
+                "staged": staged,
+                "waiting": len(self.engine.scheduler.waiting),
+                "running": len(self.engine.scheduler.running),
+                "free_pages": bm.num_free,
+                "total_pages": bm.config.total_pages,
+                "prefill": dict(self.engine.prefill_stats),
+                "transfer": {
+                    **self.engine.transfer_stats,
+                    "endpoint": self.config.transfer_endpoint,
+                    "pulls": pulls,
+                    "pull_failures": pull_failures,
+                    "breaker_skips": breaker_skips,
+                    "breakers": breakers,
+                    "requests_served": (
+                        self._transfer_service.requests_served
+                        if self._transfer_service
+                        else 0
+                    ),
+                },
+                "self_heal": {
+                    "heartbeat_interval_s": self.config.heartbeat_interval_s,
+                    "resync_interval_s": self.config.resync_interval_s,
+                    "heartbeats_published": heartbeats_published,
+                    "snapshots_published": snapshots_published,
+                    "event_batches_dropped": getattr(self._publisher, "dropped_batches", 0),
+                },
+                "admission": {
+                    "max_waiting": self.config.admission_max_waiting,
+                    "max_queued_tokens": self.config.admission_max_queued_tokens,
+                    "default_deadline_s": self.config.default_deadline_s,
+                    "pending_requests": pending,
+                    "pending_prompt_tokens": pending_tokens,
+                    "rejected": rejected,
+                    "rejected_draining": rejected_draining,
+                    **dict(self.engine.lifecycle_stats),
+                },
+                "drain": {
+                    "draining": draining,
+                    "drain_timeout_s": self.config.drain_timeout_s,
+                    "drains_started": drains_started,
+                    "forced_requests": drain_forced,
+                },
+            }
+            if self.config.async_pull:
+                # Async-import block only when the knob is on: the knobs-off
+                # /stats payload stays the legacy one.
+                payload["transfer"]["async_pull"] = {
+                    "workers": self.config.pull_workers,
+                    "importing": importing,
+                    "pulls": async_pulls,
+                    "fallbacks": async_fallbacks,
+                    "canceled": async_canceled,
+                }
+            if bm.config.host_pages > 0:
+                # Host tier + KV quant block only when the tier knob is on.
+                payload["host"] = {
+                    "host_pages": bm.config.host_pages,
+                    "cached": bm.num_host_cached_pages,
+                    "kv_quant": self.config.engine.kv_quant,
+                    "prefetch_enabled": self.config.engine.host_prefetch,
+                    **dict(bm.host_stats),
+                    "prefetch": dict(self.engine.host_prefetch_stats),
+                }
+            if self.config.engine.kv_quant_hbm is not None:
+                # Only when the device-page quant knob is on.
+                payload["kv_quant_hbm"] = {
+                    "mode": self.config.engine.kv_quant_hbm,
+                    "total_pages": bm.config.total_pages,
+                    "pool_dtype": str(self.engine.k_pages.dtype),
+                }
+            if self.config.obs_tracing or self.config.obs_metrics:
+                # Only with an OBS_* knob on.
+                payload["obs"] = {
+                    "tracing": self.tracer.snapshot(),
+                    "step_stats": {
+                        k: round(v, 6) if isinstance(v, float) else v
+                        for k, v in self.engine.step_stats.items()
+                    },
+                    "loop_lag_s": self._loop_lag_s,
+                }
+            return web.json_response(payload)
+
+        async def metrics(_request: web.Request) -> web.Response:
+            body = self.metrics.exposition()
+            if body is None:
+                return web.json_response(
+                    {"error": "prometheus_client not installed"}, status=501
+                )
+            return web.Response(body=body, headers={"Content-Type": "text/plain"})
+
+        async def debug_traces(request: web.Request) -> web.Response:
+            """Finished traces from the bounded ring, filterable by
+            ``?trace_id=`` / ``?request_id=``. Empty (with enabled=false)
+            when OBS_TRACING is off — the endpoint itself is harmless."""
+            status, payload = debug_traces_payload(self.tracer, request.query)
+            return web.json_response(payload, status=status)
+
+        async def debug_profile(request: web.Request) -> web.Response:
+            """Capture a ``torch.profiler`` trace of the live engine (CPU
+            operators and, on CUDA, every kernel the card runs, graph
+            replays included) for ``?seconds=N`` (default 3, capped at 60)
+            into ``OBS_PROFILE_DIR`` as a Chrome trace. Disabled (400) until
+            that knob is set; one capture at a time (409)."""
+            import asyncio
+
+            profile_dir = self.config.obs_profile_dir
+            if not profile_dir:
+                return web.json_response(
+                    {"error": "profiling disabled; set OBS_PROFILE_DIR"}, status=400
+                )
+            try:
+                seconds = float(request.query.get("seconds", "3"))
+            except ValueError:
+                return web.json_response({"error": "invalid seconds"}, status=400)
+            if not (0 < seconds <= 60):
+                return web.json_response(
+                    {"error": "seconds must be in (0, 60]"}, status=400
+                )
+            if not self._profile_mu.acquire(blocking=False):
+                return web.json_response(
+                    {"error": "a profile capture is already running"}, status=409
+                )
+
+            def capture() -> None:
+                # The lock is released HERE, not in the handler: a client
+                # disconnect cancels the awaiting handler, but executor
+                # work is uncancellable — releasing from the handler would
+                # let a second capture collide with the running profiler.
+                try:
+                    self._profile_capture(profile_dir, seconds)
+                finally:
+                    self._profile_mu.release()
+
+            try:
+                fut = asyncio.get_running_loop().run_in_executor(None, capture)
+            except RuntimeError:
+                self._profile_mu.release()  # never dispatched
+                raise
+            try:
+                await fut
+            except Exception as e:
+                return web.json_response(
+                    {"error": f"profile capture failed: {e!r}"}, status=500
+                )
+            return web.json_response({"profile_dir": profile_dir, "seconds": seconds})
 
         app = web.Application()
         app.router.add_post("/v1/completions", completions)
         app.router.add_get("/healthz", healthz)
+        app.router.add_post("/drain", drain_endpoint)
+        app.router.add_get("/stats", stats)
+        app.router.add_get("/metrics", metrics)
+        app.router.add_get("/debug/traces", debug_traces)
+        app.router.add_post("/debug/profile", debug_profile)
         return app
+
+    def _profile_capture(self, profile_dir: str, seconds: float) -> None:
+        """One ``torch.profiler`` window of ``seconds`` over the whole
+        process, written to ``profile_dir`` as a Chrome trace
+        (``<pod>-<time>-<id>.pt.trace.json``). CUDA activity is recorded when the engine runs on the
+        card; CUPTI sees kernels of every thread and stream, the engine
+        loop's graph replays included. The device is synchronized before
+        the window closes, so the kernels it launched are in the trace."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from ..ops import LAUNCH_LOCK
+
+        cuda = self.engine.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(
+            profile_dir,
+            f"{self.config.pod_identifier}-{time.strftime('%Y%m%d-%H%M%S')}"
+            f"-{uuid.uuid4().hex[:8]}.pt.trace.json",
+        )
+        prof = profile(activities=activities)
+        # Start and stop (with the closing device sync) outside any decode
+        # graph capture: a capture holds LAUNCH_LOCK from start to end.
+        with LAUNCH_LOCK:
+            prof.start()
+        try:
+            time.sleep(seconds)
+        finally:
+            with LAUNCH_LOCK:
+                if cuda:
+                    torch.cuda.synchronize(self.engine.device)
+                prof.stop()
+        prof.export_chrome_trace(path)
 
 
 def _resolve_model(name: str) -> LlamaConfig:
@@ -879,8 +2230,20 @@ def main() -> None:
         model=config.model_name,
         zmq=config.zmq_endpoint,
     )
+    app = server.build_app()
+
+    async def _drain_on_shutdown(_app):
+        # SIGTERM path: aiohttp's GracefulExit lands here before the
+        # process dies — drain (finish inflight up to DRAIN_TIMEOUT_S,
+        # publish the final snapshot + PodDrained goodbye) so a rolling
+        # restart never leaves stale locality in the fleet for POD_TTL_S.
+        import asyncio
+
+        await asyncio.get_running_loop().run_in_executor(None, server.drain)
+
+    app.on_shutdown.append(_drain_on_shutdown)
     try:
-        web.run_app(server.build_app(), port=config.http_port)
+        web.run_app(app, port=config.http_port)
     finally:
         server.shutdown()
 

@@ -69,6 +69,8 @@ COPIES = [
     "obs/federation.py",
     "kvcache/controller/mrc.py",
     "server/api.py",
+    # The fleet contract.
+    "kvcache/router.py",
 ]
 
 #: Sources copied byte for byte.
