@@ -35,8 +35,12 @@ scoring service in process and routes two pods that publish to it over
 ZMQ: repeats go to the pod that served them and hit its prefix cache,
 scores follow a pod's evictions, and a simulated fleet of 16 pods × 16,384
 blocks is ingested losslessly while score requests are timed under four
-index configurations. The int8 KV path also holds both int8 scale
-divisions on the card bit-equal to the CPU.
+index configurations. The ``fleet`` phase routes, sheds, drains and
+resyncs two pods behind a ``BlendedRouter``; the ``fleet_controller``
+phase burns an SLO into a flight dump, live-migrates in-flight decodes
+between pods, and runs a ``FleetController`` scale-down and warm scale-up.
+The int8 KV path also holds both int8 scale divisions on the card
+bit-equal to the CPU.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -705,7 +709,8 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 #: prefill/decode steps).
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
-         fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True),
+         fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True,
+         fleet_controller=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
          fast_path=True),
@@ -1071,6 +1076,10 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
     if path.get("fleet"):
         label = path["label"] + "_fleet"
         result, by_path[label] = fleet(pkg, ops, dev, card, eng.params, cfg)
+        emit(dict(result, path=label))
+    if path.get("fleet_controller"):
+        label = path["label"] + "_fleet_controller"
+        result, by_path[label] = fleet_controller(pkg, ops, dev, card, eng.params, cfg)
         emit(dict(result, path=label))
     return by_path
 
@@ -1903,12 +1912,13 @@ class Scorer:
     """The port's ``ScoringService`` in process: its SUB socket on one free
     loopback port, its HTTP API on another."""
 
-    def __init__(self, api, native_index: bool, shards: int, pod_ttl_s: float = 0.0):
+    def __init__(self, api, native_index: bool, shards: int, pod_ttl_s: float = 0.0, **svc_kw):
+        """``svc_kw``: further ``ServiceConfig`` fields."""
         self.endpoint = f"tcp://127.0.0.1:{free_local_port()}"
         self.service = api.ScoringService(
             api.ServiceConfig(zmq_endpoint=self.endpoint, block_size=16,
                               native_index=native_index, scorer_shards=shards,
-                              pod_ttl_s=pod_ttl_s),
+                              pod_ttl_s=pod_ttl_s, **svc_kw),
             tokenizer=CharTokenizer())
         self.service.start()
         self.http = ScoringHttp(self.service, free_local_port())
@@ -2645,6 +2655,598 @@ def fleet(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
     if launches != expected:
         fail(f"fleet: kernel launches {launches} != expected {expected}")
     out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, launches
+
+
+# -- the fleet's control loops ---------------------------------------------------
+#: the TTFT objective of the fleet_controller phase's pods: a placed 8B
+#: prompt's TTFT reads ~0.5 s on the card, so its cold requests burn it
+FC_SLO = "ttft:0.2:0.99"
+#: prompt tokens, greedy new tokens, and the tokens each request has
+#: decoded before the migration step freezes it
+FC_PROMPT, FC_NEW, FC_FREEZE_AT = 1024, 64, 16
+#: a TTFT bucket of an OpenMetrics exposition that carries a trace-id
+#: exemplar
+EXEMPLAR_RE = r'kvcache_request_ttft_seconds_bucket\{[^}]*\}\s+\S+\s+#\s+\{trace_id="([0-9a-f]{32})"\}'
+
+
+class StepGate:
+    """Holds a pod's engine steps: while ``running`` is clear, and from the
+    first step at which ``park_when()`` holds until ``release``, the engine
+    loop's step does nothing (the loop still serves its queues: admissions,
+    freezes, settles). So the point at which a migration freezes a request
+    is a function of the requests, not of timing, and two pods fed the same
+    requests freeze them alike."""
+
+    def __init__(self, engine):
+        import threading
+
+        self.engine, self._step = engine, engine.step
+        self.running = threading.Event()
+        self.parked = threading.Event()
+        self.park_when = None
+        engine.step = self.step
+
+    def step(self):
+        if not self.parked.is_set() and self.park_when is not None and self.park_when():
+            self.parked.set()
+        if not self.running.is_set() or self.parked.is_set():
+            time.sleep(0.001)
+            return []
+        return self._step()
+
+    def release(self):
+        self.park_when = None
+        self.parked.clear()
+        self.running.set()
+        del self.engine.step
+
+
+def live_seqs(eng, rids) -> list:
+    """The engine's running and prefilling sequences among ``rids`` (a
+    read from another thread: retried when a list changes under it)."""
+    while True:
+        try:
+            sch = eng.scheduler
+            return [s for s in list(sch.running) + list(sch.prefilling) if s.request_id in rids]
+        except RuntimeError:
+            continue
+
+
+def frozen_batch(pkg, pod: FleetPod, prompts, rids, new_tokens: int = FC_NEW,
+                 freeze_at: int = FC_FREEZE_AT):
+    """Submit ``prompts`` to ``pod`` with its steps held until all are
+    admitted, then let them run together until each has decoded
+    ``freeze_at`` tokens, and park the engine there. Returns the futures
+    and the parked gate."""
+    gate = StepGate(pod.engine)
+    sp = pkg["server"].SamplingParams
+    futs = [pod.pod.submit(p, sp(max_new_tokens=new_tokens), request_id=rid)
+            for p, rid in zip(prompts, rids)]
+    deadline = time.monotonic() + 30
+    while len(pod.engine.scheduler.waiting) < len(prompts):
+        if time.monotonic() > deadline:
+            fail(f"fleet_controller: {pod.name} never admitted the migration batch")
+        time.sleep(0.001)
+    rid_set = set(rids)
+
+    def all_decoded() -> bool:
+        seqs = live_seqs(pod.engine, rid_set)
+        return len(seqs) == len(rids) and all(s.num_generated >= freeze_at for s in seqs)
+
+    gate.park_when = all_decoded
+    gate.running.set()
+    if not gate.parked.wait(120):
+        fail(f"fleet_controller: {pod.name}'s batch never decoded {freeze_at} tokens")
+    return futs, gate
+
+
+def migration_logit_move(pkg, params, cfg, tokens, cached: int, ps, dev) -> float:
+    """How far one token's logits move between the two ways a migration
+    computes them: the source decodes every token after the prompt
+    (``decode_step`` over a pool its prefill wrote), the target re-prefills
+    the context past its ``cached`` imported tokens over those pages (one
+    warm prefill). ``tokens`` is the folded context (prompt and the tokens
+    generated before the freeze); the largest absolute difference of the
+    next token's logits."""
+    models, llama = pkg["models"], pkg["llama"]
+    n_prompt = FC_PROMPT
+    pages = len(tokens) // ps + 2
+    pool = list(models.init_kv_pages(cfg, pages, ps, dev))
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev)
+
+    def prefill(pool_, toks, start):
+        pos = torch.arange(start, start + len(toks), dtype=torch.int32, device=dev)[None]
+        return models.prefill(params, cfg, torch.tensor([toks], dtype=torch.int32, device=dev),
+                              pos, torch.ones_like(pos, dtype=torch.bool), pool_[0], pool_[1],
+                              table[pos.long() // ps], pos % ps, table[: -(-start // ps)][None],
+                              torch.tensor([start], dtype=torch.int32, device=dev))[0][0]
+
+    prefill(pool, tokens[:n_prompt], 0)
+    for i in range(n_prompt, len(tokens)):
+        logits_dec = llama.decode_step(
+            params, cfg, torch.tensor([tokens[i]], dtype=torch.int32, device=dev),
+            torch.tensor([i], dtype=torch.int32, device=dev), pool[0], pool[1], table[None],
+            torch.tensor([i + 1], dtype=torch.int32, device=dev), page_size=ps)[0][0]
+    warm = [t.clone() for t in pool]
+    logits_warm = prefill(warm, tokens[cached:], cached)
+    return float((logits_dec.float() - logits_warm.float()).abs().max())
+
+
+def migration_parity(pkg, eng, cfg, prompts, migrated, reference, frozen_at, cached, ps,
+                     dev) -> list[dict]:
+    """Migrated greedy tokens against a never-migrated run's: equal, or the
+    first difference comes after the freeze and the model's top-2 logit gap
+    there (one cold prefill) is at most twice the logit move a migration makes
+    (``migration_logit_move``: a top-2 gap moves by at most twice that).
+    Each difference is reported with its gap and measured move."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(reference, migrated)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        d = dict(top2_gap(pkg, eng, cfg, prompts[i], a[:j], ps, dev),
+                 request=i, index=j, never_migrated=a[j], migrated=b[j], frozen_at=frozen_at[i])
+        if j < frozen_at[i]:
+            fail(f"fleet_controller: a migrated request's tokens differ before its freeze: {d}")
+        context = list(prompts[i]) + list(a[: frozen_at[i]])
+        d["migration_logit_move"] = migration_logit_move(pkg, eng.params, cfg, context,
+                                                         cached[i], ps, dev)
+        if d["top2_gap"] > 2 * d["migration_logit_move"]:
+            fail(f"fleet_controller: migrated greedy tokens differ from the never-migrated run's "
+                 f"with a top-2 gap beyond what a migration moves the logits by: {d}")
+        diffs.append(d)
+    return diffs
+
+
+def wait_for(predicate, what: str, timeout: float = 30.0) -> float:
+    """Poll ``predicate`` every 0.5 ms; seconds it took. Fails the phase
+    with ``what`` after ``timeout``."""
+    t = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t > timeout:
+            fail(f"fleet_controller: {what}")
+        time.sleep(0.0005)
+    return time.perf_counter() - t
+
+
+def fc_slo_flight(pod_a: FleetPod, flight_dir: str, rng, out: dict) -> None:
+    """Step 1 of ``fleet_controller``: SLO burn, the flight dump and the
+    lifecycle/MRC endpoints."""
+    import glob
+    import re
+
+    firsts = []
+    for p in char_prompts(rng, 3, FC_PROMPT):
+        status, _, body = pod_a.complete(p, 8)
+        if status != 200:
+            fail(f"fleet_controller: a cold request answered {status} {body}")
+        expect_length(body, 8, "a cold request")
+        firsts.append(body["ttft_s"])
+    _, _, stats = pod_a.http.call("GET", "/stats")
+    burn = stats["slo"]["burn_rates"]["ttft_le_0.2s_p0.99"]
+    threshold = pod_a.pod.config.obs_flight_burn
+    if not burn["60s"] or burn["60s"] < threshold:
+        fail(f"fleet_controller: /stats slo burn {burn} under the flight threshold {threshold}")
+    dumps = glob.glob(os.path.join(flight_dir, "flight-pod-a-*-slo_burn.json"))
+    if not dumps:
+        fail(f"fleet_controller: no slo_burn flight dump in {os.listdir(flight_dir)}")
+    _, _, flight = pod_a.http.call("GET", "/debug/flight")
+    kinds = [e["kind"] for e in (flight.get("timeline") or {}).get("entries", [])]
+    if flight["timeline"]["reason"] != "slo_burn" or "step" not in kinds \
+            or "trigger:slo_burn" not in kinds or "slo_burn" not in kinds:
+        fail(f"fleet_controller: /debug/flight served {flight.get('timeline', {}).get('reason')} "
+             f"with {sorted(set(kinds))}")
+    _, _, led = pod_a.http.call("GET", "/debug/lifecycle")
+    _, _, mrc = pod_a.http.call("GET", "/debug/mrc")
+    if not (led["enabled"] and led["recent"] and led["transitions"] > 0):
+        fail(f"fleet_controller: /debug/lifecycle answered {led.get('enabled')} with "
+             f"{led.get('transitions')} transitions")
+    if not (mrc["enabled"] and mrc["curve"] and mrc["accesses"] > 0):
+        fail(f"fleet_controller: /debug/mrc answered {mrc}")
+    status, hdrs, text = pod_a.http.call("GET", "/metrics")
+    if status != 200 or "# TYPE kvcache_slo_burn_rate gauge" not in text \
+            or not re.search(r'kvcache_slo_burn_rate\{objective="ttft_le_0.2s_p0.99"', text):
+        fail(f"fleet_controller: /metrics answered {status} without the SLO burn gauge")
+    out["slo_flight"] = {
+        "slo": FC_SLO, "cold_requests": 3, "ttft_ms": [t * 1e3 for t in firsts],
+        "burn_rates": stats["slo"]["burn_rates"], "flight_burn_threshold": threshold,
+        "flight_dumps": len(dumps), "timeline_entries": len(kinds),
+        "timeline_kinds": sorted(set(kinds)), "flight": stats["flight"],
+        "lifecycle_transitions": led["transitions"], "mrc_accesses": mrc["accesses"],
+        "mrc_tiers": mrc["tiers"], "metrics_content_type": hdrs.get("Content-Type"),
+    }
+
+
+def fc_migrate(pkg, pods: dict, prompts, rng, out: dict) -> dict:
+    """Step 2 of ``fleet_controller``: live migration of four decodes from
+    pod-b to pod-a. Returns what the parity and fallback checks need."""
+    pod_a, pod_b = pods["pod-a"], pods["pod-b"]
+    ep_a = pod_a.pod.config.transfer_endpoint
+    bm_b = pod_b.engine.block_manager
+    free_b = bm_b.num_free
+    rids = [f"mig-{i}" for i in range(len(prompts))]
+    futs, gate = frozen_batch(pkg, pod_b, prompts, rids)
+    page_mib = sum(t[:, 0].numel() * t.element_size()
+                   for t in (pod_b.engine.k_pages, pod_b.engine.v_pages)) / 2**20
+    service = pod_a.pod._transfer_service
+    moves = []
+    for rid in rids:
+        blocks0 = service.migration_blocks_accepted
+        t = time.perf_counter()
+        resumed = pod_b.pod.migrate_out(rid, ep_a)
+        ms = (time.perf_counter() - t) * 1e3
+        blocks = service.migration_blocks_accepted - blocks0
+        moves.append({"request": rid, "resumed": resumed, "ms": ms, "blocks": blocks,
+                      "mib": blocks * page_mib})
+        if not resumed:
+            fail(f"fleet_controller: the migration of {rid} did not resume: {moves[-1]}")
+    gate.release()
+    local = [f.result(timeout=60) for f in futs]
+    if any(s.finish_reason != "migrated" for s in local):
+        fail(f"fleet_controller: the source's futures finished {[s.finish_reason for s in local]}")
+    conts = [pod_a.pod.migrated_future(rid).result(timeout=120) for rid in rids]
+    for s, c in zip(local, conts):
+        if c.error or c.finish_reason not in (None, "length") or len(c.generated_tokens) != FC_NEW:
+            fail(f"fleet_controller: a continuation finished {c.finish_reason!r} with "
+                 f"{len(c.generated_tokens)} of {FC_NEW} tokens")
+        if c.generated_tokens[: len(s.generated_tokens)] != s.generated_tokens:
+            fail("fleet_controller: a continuation does not continue its source's tokens")
+    wait_for(lambda: pod_a.pod.queue_depth == 0 and pod_b.pod.queue_depth == 0,
+             f"queue depths {pod_a.pod.queue_depth}, {pod_b.pod.queue_depth} after the migrations")
+    if bm_b.num_free != free_b or pod_b.engine.has_work:
+        fail(f"fleet_controller: pod-b has {bm_b.num_free} free pages after the migrations, "
+             f"{free_b} before")
+    drain_s = pod_b.pod.config.drain_timeout_s
+    out["migration"] = {
+        "requests": len(rids), "prompt_tokens": FC_PROMPT, "new_tokens": FC_NEW,
+        "frozen_at_tokens": [len(s.generated_tokens) for s in local],
+        "resumed": f"{sum(m['resumed'] for m in moves)}/{len(moves)}", "moves": moves,
+        "ms_median": float(np.median([m["ms"] for m in moves])),
+        "drain_timeout_s": drain_s,
+        "ms_max_over_drain_timeout": max(m["ms"] for m in moves) / (drain_s * 1e3),
+        "cached_prompt_tokens_on_target": [c.num_cached_prompt for c in conts],
+        "pod_b_free_pages_restored": True, "queue_depth_after": [0, 0],
+        "host_times": "migration ms are host wall times, freeze to settle",
+    }
+    return {"frozen_at": [len(s.generated_tokens) for s in local],
+            "migrated": [list(c.generated_tokens) for c in conts],
+            "cached": [c.num_cached_prompt for c in conts]}
+
+
+def fc_fallback(pkg, pod_f: FleetPod, prompts, migrated: dict, out: dict) -> None:
+    """Step 2's fallback: the same batch on a fresh pod, one request frozen
+    at the same point and migrated to an endpoint where nothing listens; it
+    resumes locally, bit-equal to its migrated run."""
+    rids = [f"fb-{i}" for i in range(len(prompts))]
+    futs, gate = frozen_batch(pkg, pod_f, prompts, rids)
+    dead = f"tcp://127.0.0.1:{free_local_port()}"
+    t = time.perf_counter()
+    if pod_f.pod.migrate_out(rids[0], dead):
+        fail("fleet_controller: a migration to a dead endpoint resumed")
+    fallback_ms = (time.perf_counter() - t) * 1e3
+    gate.release()
+    seqs = [f.result(timeout=120) for f in futs]
+    if seqs[0].finish_reason == "migrated" or pod_f.pod.migration_fallbacks != 1:
+        fail(f"fleet_controller: the dead-endpoint migration finished {seqs[0].finish_reason!r} "
+             f"with {pod_f.pod.migration_fallbacks} fallbacks")
+    if list(seqs[0].generated_tokens) != migrated["migrated"][0]:
+        fail("fleet_controller: the local fallback's tokens differ from the migrated run's")
+    out["fallback"] = {"endpoint": "dead", "ms": fallback_ms, "bit_equal_to_migrated": True,
+                       "tokens": len(seqs[0].generated_tokens),
+                       "lifecycle": {k: pod_f.engine.lifecycle_stats.get(k)
+                                     for k in ("migration_frozen", "migration_fallback")}}
+
+
+def fc_audit_pull(pkg, pods: dict, scorer: Scorer, router, prefixes, rng, out: dict) -> None:
+    """Step 4 of ``fleet_controller``: route audits (four requests, each a
+    512-token prefix of ``prefixes``, which pod-a holds, plus 256 tokens of
+    its own), a pull span and an exemplar."""
+    import re
+
+    auditor = scorer.service.route_auditor
+    health = scorer.service.fleet_health
+    names = list(pods)
+    rids = [f"audit-{i}" for i in range(4)]
+    chosen = []
+    prompts = [list(pre[:512]) + own for pre, own in zip(prefixes, char_prompts(rng, 4, 256))]
+    for rid, p in zip(rids, prompts):
+        d = router.route(p, [n for n in names if health.is_routable(n)], request_id=rid)
+        chosen.append(d.pod)
+        seq = pods[d.pod].pod.submit(p, pkg["server"].SamplingParams(max_new_tokens=8),
+                                     request_id=rid).result(timeout=120)
+        if seq.error:
+            fail(f"fleet_controller: audited request {rid} failed: {seq.error}")
+    rows = {}
+
+    def joined() -> bool:
+        for rid in rids:
+            got = auditor.recent(request_id=rid)
+            if len(got) == 1:
+                rows[rid] = got[0]
+        return len(rows) == len(rids)
+
+    wait_for(joined, f"the route auditor joined {len(rows)} of {len(rids)} routed requests")
+    # The pull span: pod-b serves a prompt, pod-a pulls its prefix through
+    # ASYNC_PULL on an X-Pull-Source request.
+    pod_a, pod_b = pods["pod-a"], pods["pod-b"]
+    prefix = char_prompts(rng, 1, FC_PROMPT)[0]
+    status, _, body = pod_b.complete(prefix, 1)
+    if status != 200:
+        fail(f"fleet_controller: pod-b answered {status} {body}")
+    status, hdrs, body = pod_a.complete(prefix + char_prompts(rng, 1, 64)[0], 8,
+                                        {"X-Pull-Source": pod_b.pod.config.transfer_endpoint})
+    if status != 200 or body["usage"]["cached_prompt_tokens"] < FC_PROMPT:
+        fail(f"fleet_controller: the pulled request answered {status} with "
+             f"{body.get('usage')}")
+    trace_id = hdrs["traceparent"].split("-")[1]
+    _, _, traces = pod_a.http.call("GET", f"/debug/traces?trace_id={trace_id}")
+    spans = {s["span_id"]: s for t in traces["traces"] for s in t["spans"]}
+    pulls = [s for s in spans.values() if s["name"] == "pod.pull_prefix"]
+    if len(pulls) != 1 or spans.get(pulls[0]["parent_span_id"], {}).get("name") != "pod.request" \
+            or pulls[0]["attrs"].get("outcome") != "ok" or not pulls[0]["attrs"].get("async"):
+        fail(f"fleet_controller: the pulled request's trace holds {pulls}")
+    # The exemplar: a TTFT bucket names a trace /debug/traces resolves.
+    status, hdrs, text = pod_a.http.call("GET", "/metrics")
+    match = re.search(EXEMPLAR_RE, text)
+    if status != 200 or not hdrs.get("Content-Type", "").startswith(
+            "application/openmetrics-text") or not match:
+        fail(f"fleet_controller: /metrics answered {status} {hdrs.get('Content-Type')} "
+             f"without a TTFT exemplar")
+    _, _, ex = pod_a.http.call("GET", f"/debug/traces?trace_id={match.group(1)}")
+    if not any(s["name"] == "pod.request" for t in ex["traces"] for s in t["spans"]):
+        fail("fleet_controller: the exemplar's trace id resolves to no pod.request span")
+    out["audit_pull_exemplar"] = {
+        "routed": len(rids), "pods": chosen, "audits_joined": len(rows),
+        "audit_rows": [{k: r.get(k) for k in ("chosen_pod", "realized_pod", "predicted_blocks",
+                                              "realized_blocks", "ratio", "cause")}
+                       for r in rows.values()],
+        "auditor": {k: auditor.snapshot().get(k) for k in ("joined", "unmatched_realized")},
+        "pull_span": {k: pulls[0]["attrs"].get(k) for k in ("async", "outcome",
+                                                            "imported_blocks", "overlap")},
+        "pulled_cached_prompt_tokens": body["usage"]["cached_prompt_tokens"],
+        "metrics_content_type": hdrs.get("Content-Type"), "exemplar_trace_id": match.group(1),
+    }
+
+
+def steered_mrc(hit) -> dict:
+    """A fleet MRC payload whose predicted hit rate at capacity ``c`` is
+    ``hit(c)`` (the steered signal of ``fc_controller``)."""
+    from llm_d_kv_cache_manager_tpu_torch.obs.lifecycle import REUSE_DISTANCE_BUCKETS
+
+    return {"enabled": True, "sampled": 1000, "accesses": 1000, "cold": 10,
+            "curve": [{"capacity_blocks": c, "predicted_hit_rate": round(hit(c), 4),
+                       "miss_ratio": round(1 - hit(c), 4)} for c in REUSE_DISTANCE_BUCKETS]}
+
+
+def fc_controller(pkg, dev, params, cfg, pods: dict, scorer: Scorer, knobs: dict, extra: list,
+                  known: list, rng, out: dict) -> None:
+    """Step 3 of ``fleet_controller``: a ``FleetController`` over an
+    ``InProcessFleet`` of pod-a and pod-b, with the burn and MRC signals
+    steered (the decision is the test's; migration, drain, provisioning and
+    revival run for real): a scale-down of pod-b with live decodes, then a
+    scale-up that provisions pod-c and revives pod-a's warm chains on it.
+    ``known``: token lists pod-a served before; the warm request on pod-c
+    reuses the one whose revived prefix is longest."""
+    from llm_d_kv_cache_manager_tpu_torch.kvcache import controller
+
+    class SteeredFleet(controller.InProcessFleet):
+        steer_burn = steer_mrc = None
+
+        def observe(self):
+            signals = super().observe()
+            for s in signals:
+                s.burn_rates, s.mrc = self.steer_burn, self.steer_mrc
+            return signals
+
+    def make_pod(pod_id):
+        fp = FleetPod(pkg, dev, params, cfg, scorer, pod_id, 384, None, **knobs)
+        extra.append(fp)
+        return fp.pod, None
+
+    health = scorer.service.fleet_health
+    pod_a, pod_b = pods["pod-a"], pods["pod-b"]
+    fleet = SteeredFleet(make_pod=make_pod, fleet_health=health, drain_timeout_s=60.0)
+    for name, p in pods.items():
+        fleet.register(name, p.pod, p.pod.config.transfer_endpoint)
+    ctl = controller.FleetController(
+        controller.FleetControllerConfig(enabled=True, min_pods=1, max_pods=4, hysteresis_s=0.0,
+                                         revive_chains=2), fleet)
+    # Scale-down: pod-b holds two live decodes, pod-a three (pod-b is the
+    # cheaper victim), each parked after its first decoded token so all
+    # stay live through the decision.
+    fut_a, gate_a = frozen_batch(pkg, pod_a, char_prompts(rng, 3, 512),
+                                 [f"live-{i}" for i in range(3)], 256, 1)
+    down = [f"down-{i}" for i in range(2)]
+    fut_b, gate_b = frozen_batch(pkg, pod_b, char_prompts(rng, 2, 512), down, 256, 1)
+    drained0 = health.snapshot()["pods_drained"]
+    fleet.steer_burn = {"ttft_le_0.2s_p0.99": {"60s": 0.1, "300s": 0.2}}
+    fleet.steer_mrc = steered_mrc(lambda c: 0.9)
+    t = time.perf_counter()
+    d1 = ctl.reconcile()
+    down_s = time.perf_counter() - t
+    gate_a.release()
+    gate_b.release()
+    if (d1.action, d1.pod_id, d1.migrated, d1.migration_fallbacks) != ("scale_down", "pod-b", 2, 0):
+        fail(f"fleet_controller: the scale-down reconcile decided {d1.as_attrs()}")
+    if fleet.pod_ids() != ["pod-a"] or health.is_routable("pod-b"):
+        fail(f"fleet_controller: after the scale-down the fleet is {fleet.pod_ids()}")
+    if [f.result(timeout=60).finish_reason for f in fut_b] != ["migrated"] * 2:
+        fail("fleet_controller: pod-b's live requests did not finish migrated")
+    conts = [pod_a.pod.migrated_future(rid).result(timeout=120) for rid in down]
+    for seq in conts + [f.result(timeout=120) for f in fut_a]:
+        if seq.error or len(seq.generated_tokens) != 256:
+            fail(f"fleet_controller: a request finished with {len(seq.generated_tokens)} of 256 "
+                 f"tokens through the scale-down ({seq.error})")
+    goodbye_s = wait_for(lambda: health.snapshot()["pods_drained"] == drained0 + 1,
+                         "the scorer never applied pod-b's goodbye")
+    # Scale-up: pod-c is provisioned and pod-a's warm chains revived on it.
+    fleet.steer_burn = {"ttft_le_0.2s_p0.99": {"60s": 5.0, "300s": 3.0}}
+    # Still climbing past pod-a's 1023 blocks: one more pod buys hit rate.
+    fleet.steer_mrc = steered_mrc(lambda c: min(c / 8192.0, 0.95))
+    t = time.perf_counter()
+    d2 = ctl.reconcile()
+    up_s = time.perf_counter() - t
+    if d2.action != "scale_up" or d2.revived_blocks < 1 or health.pods_added < 1:
+        fail(f"fleet_controller: the scale-up reconcile decided {d2.as_attrs()}")
+    pod_c = next(fp for fp in extra if fp.name == d2.pod_id)
+    known = known + [list(s.prompt_tokens) for s in conts] + [
+        list(f.result().prompt_tokens) for f in fut_a]
+    held = {h for hashes in pod_c.engine.block_digest().values() for h in hashes}
+    db = pod_c.engine.block_manager.token_db
+
+    def revived(tokens) -> int:
+        return next((i for i, h in enumerate(db.prefix_hashes(tokens)) if h not in held),
+                    len(db.prefix_hashes(tokens)))
+
+    warm_src = max(known, key=revived)
+    n_cached = min(revived(warm_src) * 16, FC_PROMPT)
+    if n_cached < 16:
+        fail("fleet_controller: no known prompt's prefix was revived on pod-c")
+    warm = list(warm_src[:n_cached]) + char_prompts(rng, 1, FC_PROMPT + 64 - n_cached)[0]
+    cold = char_prompts(rng, 1, FC_PROMPT + 64)[0]
+    # A new pod's first request also pays its engine's first-use costs, not
+    # its prefill's (100-230 ms in this phase on an H100): a short request
+    # takes them, so the warm and the cold request compare prefills alone.
+    first = char_prompts(rng, 1, 16)[0]
+    answers = {}
+    for kind, tokens, new in (("first", first, 1), ("warm", warm, 8), ("cold", cold, 8)):
+        status, _, body = pod_c.complete(tokens, new)
+        if status != 200:
+            fail(f"fleet_controller: pod-c's {kind} request answered {status} {body}")
+        expect_length(body, new, f"pod-c's {kind} request")
+        answers[kind] = body
+    warm_ms, cold_ms = (answers[k]["ttft_s"] * 1e3 for k in ("warm", "cold"))
+    if answers["warm"]["usage"]["cached_prompt_tokens"] < 16 or not warm_ms < cold_ms:
+        fail(f"fleet_controller: pod-c's first warm request hit "
+             f"{answers['warm']['usage']['cached_prompt_tokens']} tokens in {warm_ms:.1f} ms "
+             f"against {cold_ms:.1f} ms cold")
+    out["controller"] = {
+        "scale_down": dict(d1.as_attrs(), seconds=down_s, goodbye_applied_s=goodbye_s,
+                           pods_drained=health.snapshot()["pods_drained"],
+                           pods_removed=health.pods_removed),
+        "scale_up": dict(d2.as_attrs(), seconds=up_s, pods_added=health.pods_added),
+        "pod_c": d2.pod_id, "revived_blocks": d2.revived_blocks,
+        "pod_c_first_request_ttft_ms": answers["first"]["ttft_s"] * 1e3,
+        "pod_c_first_warm_ttft_ms": warm_ms, "pod_c_cold_ttft_ms": cold_ms,
+        "pod_c_warm_cached_prompt_tokens": answers["warm"]["usage"]["cached_prompt_tokens"],
+        "prompt_tokens": FC_PROMPT + 64,
+    }
+
+
+def fleet_controller(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """The fleet's control loops at full width and depth on the 8B path's
+    parameters (one copy on the card): the port's ``ScoringService`` in
+    process (route audit on, a huge ``pod_ttl_s``), pod-a (1024 pages of
+    16) and pod-b (384) publishing to it, each with 8 lanes and pipelined
+    graph bursts of 4, ``FLEET_CONTROLLER``, a transfer endpoint,
+    ``OBS_LIFECYCLE``, ``OBS_FLIGHT`` with a dump directory,
+    ``OBS_SLO=ttft:0.2:0.99``, ``OBS_AUDIT``, ``OBS_EXEMPLARS`` and
+    ``ASYNC_PULL``, and a ``BlendedRouter`` over them that records its
+    decisions with the scorer's route auditor.
+
+    SLO and flight: three cold requests on pod-a burn the TTFT budget past
+    ``OBS_FLIGHT_BURN``; a flight dump lands, ``/debug/flight`` serves the
+    timeline (steps and the burn), ``/debug/lifecycle`` and ``/debug/mrc``
+    a ledger and a curve, ``/metrics`` the burn gauge. Live migration: four
+    1024-token requests (64 greedy new tokens) on pod-b, parked once each
+    has decoded 16 tokens (``StepGate``), migrate to pod-a one by one: each
+    resumes, the source's futures finish ``"migrated"``, the continuations
+    finish with all 64 tokens, pod-b's pages and both queue depths come
+    back; a fresh pod fed the same batch migrates one request to a dead
+    endpoint and resumes it locally, bit-equal to its migrated run; and the
+    migrated tokens hold against a never-migrated engine's by the near-tie
+    rule (``migration_parity``). Audit, pull and exemplar: four routed
+    requests each join one ``RequestAudit``; an ``X-Pull-Source`` request's
+    trace holds an async ``pod.pull_prefix`` span; ``/metrics`` answers
+    OpenMetrics with a TTFT exemplar that resolves in ``/debug/traces``.
+    Controller: ``fc_controller``. Exact launch counts over every engine."""
+    import shutil
+    import tempfile
+
+    kvblock, server = pkg["kvblock"], pkg["server"]
+    from llm_d_kv_cache_manager_tpu_torch import kvcache
+    from llm_d_kv_cache_manager_tpu_torch.server import api
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 5)
+    out = {"phase": "fleet_controller", "card": card, "http": True,
+           "host_times": "TTFT, migration, drain and reconcile times are host wall times"}
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    flight_dir = tempfile.mkdtemp(prefix="fleet-flight-")
+    knobs = dict(fleet_controller=True, obs_lifecycle=True, obs_flight=True,
+                 obs_flight_dir=flight_dir, obs_slo=FC_SLO, obs_audit=True, obs_exemplars=True,
+                 async_pull=True)
+    scorer = Scorer(api, True, 0, pod_ttl_s=1e9, obs_audit=True)
+    pods, extra, engines = {}, [], []
+    try:
+        for name, pages in (("pod-a", 1024), ("pod-b", 384)):
+            pods[name] = FleetPod(pkg, dev, params, cfg, scorer, name, pages, None,
+                                  transfer_endpoint=f"tcp://127.0.0.1:{free_local_port()}",
+                                  **knobs)
+        join_fleet({name: p.pod._publisher for name, p in pods.items()}, scorer)
+        indexer = scorer.service.indexer
+        router = kvcache.BlendedRouter(
+            score_fn=lambda toks, names: indexer.score_tokens(toks, SCORING_MODEL, names),
+            affinity=kvcache.PrefixAffinityTracker(
+                2, 1024, token_processor=kvblock.ChunkedTokenDatabase(
+                    kvblock.TokenProcessorConfig(block_size=16))),
+            loads_fn=lambda names: [pods[n].pod.queue_depth for n in names],
+            auditor=scorer.service.route_auditor,
+        )
+        seconds = {}
+        t = time.perf_counter()
+        fc_slo_flight(pods["pod-a"], flight_dir, rng, out)
+        seconds["slo_flight"] = time.perf_counter() - t
+        t = time.perf_counter()
+        prompts = char_prompts(rng, 4, FC_PROMPT)
+        migrated = fc_migrate(pkg, pods, prompts, rng, out)
+        seconds["migration"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pod_f = FleetPod(pkg, dev, params, cfg, scorer, "pod-f", 384, None,
+                         transfer_timeout_s=0.5, **knobs)
+        extra.append(pod_f)
+        fc_fallback(pkg, pod_f, prompts, migrated, out)
+        ref_eng = transfer_engine(server, dev, params, cfg, dict(FAST_KNOBS, total_pages=384))
+        engines.append(ref_eng)
+        reference, _, _ = serve_greedy(pkg, ref_eng, prompts, FC_NEW)
+        seconds["fallback_and_reference"] = time.perf_counter() - t
+        t = time.perf_counter()
+        fc_audit_pull(pkg, pods, scorer, router, prompts, rng, out)
+        seconds["audit_pull_exemplar"] = time.perf_counter() - t
+        t = time.perf_counter()
+        served = [list(p) + m for p, m in zip(prompts, migrated["migrated"])]
+        fc_controller(pkg, dev, params, cfg, pods, scorer, knobs, extra, served, rng, out)
+        seconds["controller"] = time.perf_counter() - t
+        engines += [p.engine for p in list(pods.values()) + extra]
+    finally:
+        for p in list(pods.values()) + extra:
+            p.close()
+        scorer.close()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    prefill = sum(e.prefill_stats["dispatches"] for e in engines)
+    decode = sum(e.decode_stats["steps"] + e.decode_graphs.warmup_steps for e in engines)
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = expected_launches(cfg, None, None, prefill, decode)
+    if launches != expected:
+        fail(f"fleet_controller: kernel launches {launches} != expected {expected} over "
+             f"{len(engines)} engines")
+    # Near-tie rule against the never-migrated run (its scratch computations
+    # launch kernels of their own, after the count above).
+    t = time.perf_counter()
+    diffs = migration_parity(pkg, ref_eng, cfg, prompts, migrated["migrated"], reference,
+                             migrated["frozen_at"], migrated["cached"], 16, dev)
+    seconds["parity"] = time.perf_counter() - t
+    out["never_migrated"] = {
+        "equal_requests": f"{len(prompts) - len(diffs)}/{len(prompts)}", "differences": diffs,
+        "rule": "equal, or the first difference follows the freeze with a top-2 gap within "
+                "twice the measured migration logit move"}
+    out["launches"] = launches
+    out["engines"] = len(engines)
+    out["step_seconds"] = seconds
     out["seconds"] = time.perf_counter() - t_phase
     return out, launches
 

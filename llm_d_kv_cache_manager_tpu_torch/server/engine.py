@@ -1204,6 +1204,78 @@ class Engine:
             log.warning("aborted all live requests", count=len(out))
         return out
 
+    def freeze_for_migration(
+        self, request_id: str
+    ) -> Optional[tuple[Sequence, list[int]]]:
+        """Freeze a live request for live migration (``FLEET_CONTROLLER``
+        scale-down): commit any in-flight burst, take the sequence out of
+        scheduling preemption-style (its registered pages survive in the
+        prefix cache, exportable by chain hash), fold its generated tokens
+        into the prompt, and park it back in the waiting queue
+        ``importing`` so the scheduler skips it while the wire transfer
+        runs. Returns ``(seq, chain_hashes)``, the hashes of the folded
+        prompt's full pages (the chain ``export_kv_blocks`` can serve in
+        this same engine-loop cycle), or None when no live sequence carries
+        ``request_id`` or it is already importing. The caller must later
+        finish the sequence (``finish_migrated``) or clear ``importing``
+        (``cancel_migration``). Engine thread only."""
+        seq = None
+        for cand in (
+            list(self.scheduler.waiting)
+            + self.scheduler.prefilling
+            + self.scheduler.running
+        ):
+            if cand.request_id == request_id:
+                seq = cand
+                break
+        if seq is None or seq.importing or self._should_finish(seq):
+            return None
+        if self._inflight is not None and any(
+            s is seq for s in self._inflight["active"]
+        ):
+            self._drain_inflight()
+        if seq in self.scheduler.waiting:
+            self.scheduler.waiting.remove(seq)
+        else:
+            self.scheduler.on_preempted(seq)  # removes from running/prefilling
+        self.block_manager.free_sequence(seq)
+        seq.fold_for_preemption()
+        seq.importing = True
+        self.scheduler.waiting.append(seq)
+        # Ship the release events now: the index must not advertise this
+        # pod as the only holder of pages a scale-down is about to move.
+        self.block_manager.flush_events()
+        self.lifecycle_stats["migration_frozen"] = (
+            self.lifecycle_stats.get("migration_frozen", 0) + 1
+        )
+        return seq, self.block_manager.token_db.prefix_hashes(seq.prompt_tokens)
+
+    def finish_migrated(self, seq: Sequence) -> None:
+        """Commit a migration: the target resumed ``seq``, so finish the
+        local half with ``finish_reason="migrated"`` (its pages were
+        released at the freeze; the parked waiting entry is withdrawn).
+        Engine thread only."""
+        seq.importing = False
+        if seq in self.scheduler.waiting:
+            self.scheduler.waiting.remove(seq)
+        seq.status = SequenceStatus.FINISHED
+        seq.finish_reason = "migrated"
+        seq.finish_time = time.monotonic()
+        self.lifecycle_stats["migrated_out"] = (
+            self.lifecycle_stats.get("migrated_out", 0) + 1
+        )
+        self.finished.append(seq)
+
+    def cancel_migration(self, seq: Sequence) -> None:
+        """Roll back a freeze (wire failure or target refusal): clear
+        ``importing`` so the scheduler re-admits the folded sequence, a
+        warm re-prefill over whatever registered pages survived, exactly
+        the preemption outcome. Engine thread only."""
+        seq.importing = False
+        self.lifecycle_stats["migration_fallback"] = (
+            self.lifecycle_stats.get("migration_fallback", 0) + 1
+        )
+
     @property
     def has_work(self) -> bool:
         return self.scheduler.has_work

@@ -9,8 +9,9 @@ The port of the JAX package's ``server/serve.py``: a continuous-batching
   transitions (``kv@<pod>@<model>`` topic, msgpack batches — the same wire
   the indexer's subscriber reads from the JAX pods),
 - an OpenAI-style HTTP surface: ``POST /v1/completions``, ``GET /healthz``,
-  ``POST /drain``, ``GET /stats``, ``GET /metrics``, ``GET /debug/traces``
-  and ``POST /debug/profile``.
+  ``POST /drain``, ``GET /stats``, ``GET /metrics``, ``GET /debug/traces``,
+  ``GET /debug/lifecycle``, ``GET /debug/mrc``, ``GET /debug/flight`` and
+  ``POST /debug/profile``.
 
 Ported knobs: per-request deadlines (the ``X-Request-Deadline`` header, a
 budget in seconds, and the ``REQUEST_DEADLINE_S`` default), the host-DRAM
@@ -43,20 +44,32 @@ prefill), and the pod's fleet contract:
   ``/metrics``, an ``obs`` block on ``/stats``; step phases are host clocks,
   as in the JAX engine, so on CUDA they time launches and host waits, not
   device work), ``OBS_PROFILE_DIR`` (``/debug/profile`` writes a
-  ``torch.profiler`` Chrome trace there), and the router's
-  ``X-Route-Action`` label on the request histograms.
+  ``torch.profiler`` Chrome trace there), the router's ``X-Route-Action``
+  label on the request histograms, the ``pod.pull_prefix`` spans and the
+  pull and pull-overlap histograms, ``OBS_EXEMPLARS`` (trace ids on the
+  latency buckets, ``/metrics`` in the OpenMetrics format) and
+  ``OBS_AUDIT`` (a ``RequestAudit`` event per finished request, the
+  realized prefix hit the scorer's route auditor joins);
+- the fleet's control loops: ``OBS_SLO``/``OBS_SLO_WINDOWS`` (in-process
+  SLO burn rates), ``OBS_LIFECYCLE``/``OBS_LIFECYCLE_RING``/``OBS_MRC_*``
+  (the block-lifecycle ledger and the reuse-distance miss-ratio curve on
+  the block manager's hooks, ``/debug/lifecycle`` and ``/debug/mrc``),
+  ``OBS_FLIGHT*`` (the flight recorder: engine steps and fleet events on
+  a ring, dumped as one timeline on an SLO burn, a breaker opening or a
+  resync; ``/debug/flight``) and ``FLEET_CONTROLLER`` (live migration of
+  in-flight decodes over the transfer plane, ``migrate_out`` /
+  ``migrated_future``, and the warm-chain donor and revival side of a
+  scale-up, ``warm_chains`` / ``revive_chain``; ``kvcache.controller``'s
+  ``FleetController`` drives them).
 
 Every knob defaults off, and then every response, ``/stats`` key and wire
 byte equals the knobs-off JAX pod's.
 
-Not ported yet: the JAX pod's SLO burn rates and flight recorder
-(``obs/slo.py``, ``obs/flight.py``, the ``OBS_SLO*`` and ``OBS_FLIGHT_*``
-knobs), the lifecycle ledger and MRC hooks (``OBS_LIFECYCLE``,
-``OBS_MRC_*``) and their ``/debug/lifecycle``, ``/debug/mrc`` and
-``/debug/flight`` endpoints, ``OBS_EXEMPLARS`` and ``OBS_AUDIT``, the
-``pod.pull_prefix`` spans and pull histograms, pod roles, the remote tier
-and its migrations, tenant QoS (``TENANT_QOS``, so admission has no tenant
-branch) and KV integrity, and the ``/stats`` blocks of those features.
+Not ported yet: pod roles (``POD_ROLE``), the remote tier
+(``REMOTE_TIER``), tenant QoS (``TENANT_QOS``, so admission has no tenant
+branch and the SLO recorder and MRC have no tenant slices) and KV
+integrity (``KV_INTEGRITY``), with their ``/stats`` blocks, and
+speculative decoding (``SPEC_DECODE``).
 
 Run: ``python -m llm_d_kv_cache_manager_tpu_torch.server.serve`` (needs
 aiohttp, and pyzmq for publishing; prometheus_client for ``/metrics``).
@@ -80,12 +93,14 @@ from ..kvcache.kvevents import (
     Heartbeat,
     IndexSnapshot,
     PodDrained,
+    RequestAudit,
     ZMQPublisher,
     ZMQPublisherConfig,
 )
 from ..kvcache.transfer import (
     KVTransferClient,
     KVTransferService,
+    MigrationPayload,
     TransferClientConfig,
     TransferClientPool,
     TransferError,
@@ -152,20 +167,22 @@ class _ServingMetrics:
         lifecycle: bool = False,
         tenant_qos: bool = False,
         integrity: bool = False,
+        exemplars: bool = False,
     ):
         """``obs``: build the latency-decomposition histograms and
-        engine-step telemetry series (``OBS_METRICS``). ``lifecycle``,
-        ``tenant_qos``, ``integrity``: build the block-lifecycle, tenant
-        SLO-burn and KV-integrity families. All off (default) keeps the
-        exposition surface bit-identical to the knobs-off JAX pod's.
+        engine-step telemetry series (``OBS_METRICS``). ``lifecycle``:
+        build the block-lifecycle families (tier transitions, per-tier
+        residency, reuse distance), fed by the ``OBS_LIFECYCLE`` ledger and
+        estimator. ``tenant_qos``, ``integrity``: build the tenant SLO-burn
+        and KV-integrity families. ``exemplars``: the latency histograms
+        carry the observing request's trace id (``OBS_EXEMPLARS``). All
+        off (default) keeps the exposition surface bit-identical to the
+        knobs-off JAX pod's.
 
         Every family the JAX pod registers under these flags is registered
-        here, so the exposition lists the same families; the port feeds
-        only those whose producers it has (requests, admission, drain,
-        deadlines and aborts, the engine step telemetry, the host tier).
-        The speculative-decoding counters, the pull histograms and the SLO
-        burn gauge stay at zero, and the lifecycle, tenant and integrity
-        planes are not ported, so the pod leaves those three flags off and
+        here, so the exposition lists the same families. The speculative-
+        decoding counters stay at zero, and the tenant and integrity
+        planes are not ported, so the pod leaves those two flags off and
         their observers are not here."""
         # Measured serving rates (EMAs over request completions), kept
         # OUTSIDE the prometheus guard: admission control derives its
@@ -177,6 +194,11 @@ class _ServingMetrics:
         self._lifecycle = bool(lifecycle)
         self._tenant_qos = bool(tenant_qos)
         self._integrity = bool(integrity)
+        # OBS_EXEMPLARS: latency histograms attach the observing request's
+        # trace_id per bucket, and exposition() switches to the OpenMetrics
+        # format (the classic text format drops exemplars), so a tail
+        # bucket resolves to /debug/traces?trace_id=<id>.
+        self._exemplars = bool(exemplars)
         try:
             import prometheus_client as prom
         except ImportError:  # pragma: no cover
@@ -467,6 +489,57 @@ class _ServingMetrics:
                 registry=self.registry,
             )
 
+    def observe_tier_transition(self, frm: str, to: str, reason: str) -> None:
+        if self._prom is None or not self._lifecycle:
+            return
+        self.block_transitions.labels(frm, to, reason).inc()
+
+    def observe_tier_residency(self, tier: str, seconds: float) -> None:
+        if self._prom is None or not self._lifecycle:
+            return
+        self.block_residency.labels(tier=tier).observe(seconds)
+
+    def observe_reuse_distance(self, distance_blocks: float) -> None:
+        """Cold (inf) distances are clamped to a finite over-the-top
+        value: they belong in the +Inf bucket, not in the _sum series."""
+        if self._prom is None or not self._lifecycle:
+            return
+        self.reuse_distance.observe(
+            min(distance_blocks, lifecycle_mod.COLD_DISTANCE_CLAMP)
+        )
+
+    def set_slo_burn(self, objective: str, window: str, rate: float) -> None:
+        if self._prom is None or not self._obs:
+            return
+        self.slo_burn.labels(objective=objective, window=window).set(rate)
+
+    def observe_pull(
+        self, seconds: float, outcome: str, trace_id: Optional[str] = None
+    ) -> None:
+        """One ``pull_prefix`` attempt: outcome ok (imported >= 1 block),
+        empty (nothing to pull: no hashes, or the peer had no warm blocks),
+        skipped (never attempted: deadline budget exhausted or the pod is
+        shutting down), failed (fetch or import error, fell back to cold),
+        or canceled (the sequence died while an async fetch was in
+        flight). Under OBS_EXEMPLARS the pulling request's trace_id rides
+        the bucket as an OpenMetrics exemplar."""
+        if self._prom is None or not self._obs:
+            return
+        hist = self.transfer_pull.labels(outcome=outcome)
+        if self._exemplars and trace_id:
+            hist.observe(seconds, exemplar={"trace_id": trace_id})
+        else:
+            hist.observe(seconds)
+
+    def observe_pull_overlap(self, hidden_s: float, exposed_s: float) -> None:
+        """One async pull's wall-time split: ``hidden`` = before the
+        scheduler first wanted the sequence (overlapped with other work),
+        ``exposed`` = the remainder (it held this sequence's prefill)."""
+        if self._prom is None or not self._obs:
+            return
+        self.pull_overlap.labels(kind="hidden").observe(max(hidden_s, 0.0))
+        self.pull_overlap.labels(kind="exposed").observe(max(exposed_s, 0.0))
+
     def sync_step_stats(self, step_stats: dict, lag_s: Optional[float]) -> None:
         """Mirror the engine's cumulative step-phase seconds into the
         labeled counter (delta sync, as ``sync_lifecycle_stats``)."""
@@ -544,8 +617,19 @@ class _ServingMetrics:
             return
         outcome, finish = self.request_labels(seq)
         lab = {"outcome": outcome, "finish": finish}
+        # OBS_EXEMPLARS: the finishing request's trace id (still attached
+        # here; spans are detached later, in _emit_request_spans) rides
+        # the TTFT/ITL buckets it lands in.
+        exemplar = None
+        if self._exemplars and seq.trace_span is not None:
+            ctx = getattr(seq.trace_span, "context", None)
+            if ctx is not None:
+                exemplar = {"trace_id": ctx.trace_id}
         if seq.ttft is not None:
-            self.req_ttft.labels(**lab).observe(seq.ttft)
+            if exemplar is not None:
+                self.req_ttft.labels(**lab).observe(seq.ttft, exemplar=exemplar)
+            else:
+                self.req_ttft.labels(**lab).observe(seq.ttft)
         if seq.prefill_start_time is not None:
             self.req_queue.labels(**lab).observe(
                 max(seq.prefill_start_time - seq.arrival_time, 0.0)
@@ -555,7 +639,10 @@ class _ServingMetrics:
                 max(seq.finish_time - seq.arrival_time, 0.0)
             )
             if seq.mean_itl is not None:
-                self.req_itl.labels(**lab).observe(seq.mean_itl)
+                if exemplar is not None:
+                    self.req_itl.labels(**lab).observe(seq.mean_itl, exemplar=exemplar)
+                else:
+                    self.req_itl.labels(**lab).observe(seq.mean_itl)
 
     def sync_lifecycle_stats(self, stats: dict) -> None:
         """Mirror the engine's monotone lifecycle counters (deadline sheds/
@@ -625,7 +712,23 @@ class _ServingMetrics:
     def exposition(self) -> Optional[bytes]:
         if self._prom is None:
             return None
+        if self._exemplars:
+            # Exemplars render only in the OpenMetrics exposition; the
+            # classic text format silently drops them.
+            from prometheus_client.openmetrics import exposition as om
+
+            return om.generate_latest(self.registry)
         return self._prom.generate_latest(self.registry)
+
+    def exposition_content_type(self) -> str:
+        """The Content-Type matching ``exposition()``'s format (the
+        OpenMetrics one is parameterized, so callers set it through a
+        headers dict; aiohttp's ``content_type=`` rejects parameters)."""
+        if self._exemplars:
+            from prometheus_client.openmetrics import exposition as om
+
+            return om.CONTENT_TYPE_LATEST
+        return "text/plain"
 
 
 def _env_bool(name: str, default: str) -> bool:
@@ -706,9 +809,62 @@ class PodServerConfig:
     #: phase timing, batch-occupancy / free-page / loop-lag gauges on
     #: /metrics, and an ``obs`` block on /stats.
     obs_metrics: bool = False
+    #: OpenMetrics trace exemplars: the OBS_METRICS latency histograms
+    #: (TTFT/ITL/pull) attach the observing request's trace_id per bucket
+    #: and /metrics switches to the OpenMetrics exposition. Off = the
+    #: classic exposition.
+    obs_exemplars: bool = False
     #: directory for ``POST /debug/profile`` torch.profiler traces; unset =
     #: the endpoint is disabled.
     obs_profile_dir: Optional[str] = None
+    # -- routing-quality audit + SLO recording (off by default) -------------
+    #: publish a ``RequestAudit`` KV event per finished request carrying
+    #: the realized prefix-cache hit count, so the indexer's route auditor
+    #: can join prediction with reality.
+    obs_audit: bool = False
+    #: SLO objectives evaluated in-process against the same measurements
+    #: the latency histograms observe, e.g. ``"ttft:0.5:0.99;itl:0.05:0.95"``
+    #: (metric:threshold_s:target, ";"-separated). Unset = no recorder.
+    obs_slo: str = ""
+    #: burn-rate windows in seconds, e.g. ``"60,300"`` (unset = 60,300)
+    obs_slo_windows: str = ""
+    # -- KV-capacity observability (off by default) -------------------------
+    #: block-lifecycle ledger + reuse-distance MRC: record every cached
+    #: block's tier transitions off the block-manager hooks and sample
+    #: reuse distances off the allocate-time prefix walk. Surfaced at
+    #: ``/debug/lifecycle`` / ``/debug/mrc``, a ``lifecycle`` /stats block,
+    #: and the kvcache_block_tier_*/kvcache_reuse_distance_blocks families.
+    obs_lifecycle: bool = False
+    #: lifecycle-ledger ring depth (recent transitions kept for
+    #: /debug/lifecycle)
+    obs_lifecycle_ring: int = 4096
+    #: MRC spatial sample rate in (0, 1]: fraction of blocks (by
+    #: deterministic hash) whose reuse distances are tracked
+    obs_mrc_sample: float = 1.0
+    #: distinct sampled blocks the MRC stack tracks (distances beyond this
+    #: read as cold: the curve saturates at this capacity)
+    obs_mrc_tracked: int = 8192
+    #: flight recorder: bounded ring of per-step engine telemetry + fleet
+    #: events, dumped as one causally ordered timeline on a trigger (SLO
+    #: burn-rate crossing, breaker OPEN, resync). Implies engine step
+    #: timing (the ring needs the phase deltas).
+    obs_flight: bool = False
+    #: flight-recorder ring depth (per ring: steps and events)
+    obs_flight_ring: int = 2048
+    #: directory for triggered timeline dumps; unset = in memory only
+    #: (``/debug/flight`` still serves the latest timeline)
+    obs_flight_dir: Optional[str] = None
+    #: burn-rate threshold that triggers a flight dump (needs OBS_SLO for
+    #: the recorder)
+    obs_flight_burn: float = 8.0
+    # -- fleet controller (off by default) ----------------------------------
+    #: ``FLEET_CONTROLLER``: this pod takes part in MRC-driven autoscaling.
+    #: It accepts live-migrated in-flight decode sequences over the
+    #: transfer plane (admitted through the ``importing`` state and resumed
+    #: mid-generation) and may migrate its own sequences out on a
+    #: scale-down. Off answers migrations with the tolerant refusal a
+    #: service without the knob gives, and ``migrate_out`` refuses locally.
+    fleet_controller: bool = False
     engine: EngineConfig = field(default_factory=EngineConfig)
 
     @classmethod
@@ -762,7 +918,24 @@ class PodServerConfig:
         cfg.obs_tracing = _env_bool("OBS_TRACING", "0")
         cfg.obs_trace_buffer = int(os.environ.get("OBS_TRACE_BUFFER", cfg.obs_trace_buffer))
         cfg.obs_metrics = _env_bool("OBS_METRICS", "0")
+        cfg.obs_exemplars = _env_bool("OBS_EXEMPLARS", "0")
         cfg.obs_profile_dir = os.environ.get("OBS_PROFILE_DIR") or None
+        cfg.obs_audit = _env_bool("OBS_AUDIT", "0")
+        cfg.obs_slo = os.environ.get("OBS_SLO", "")
+        cfg.obs_slo_windows = os.environ.get("OBS_SLO_WINDOWS", "")
+        # KV-capacity observability (0/unset = off).
+        cfg.obs_lifecycle = _env_bool("OBS_LIFECYCLE", "0")
+        cfg.obs_lifecycle_ring = int(
+            os.environ.get("OBS_LIFECYCLE_RING", cfg.obs_lifecycle_ring)
+        )
+        cfg.obs_mrc_sample = float(os.environ.get("OBS_MRC_SAMPLE", cfg.obs_mrc_sample))
+        cfg.obs_mrc_tracked = int(os.environ.get("OBS_MRC_TRACKED", cfg.obs_mrc_tracked))
+        cfg.obs_flight = _env_bool("OBS_FLIGHT", "0")
+        cfg.obs_flight_ring = int(os.environ.get("OBS_FLIGHT_RING", cfg.obs_flight_ring))
+        cfg.obs_flight_dir = os.environ.get("OBS_FLIGHT_DIR") or None
+        cfg.obs_flight_burn = float(os.environ.get("OBS_FLIGHT_BURN", cfg.obs_flight_burn))
+        # Fleet controller (0/unset = off).
+        cfg.fleet_controller = _env_bool("FLEET_CONTROLLER", "0")
         eng = cfg.engine
         eng.block_manager = BlockManagerConfig(
             total_pages=int(os.environ.get("TOTAL_PAGES", 1024)),
@@ -849,7 +1022,10 @@ class PodServer:
         )
         if engine is not None and on_events is not None:
             self.engine.block_manager.on_events = on_events
-        if self.config.obs_metrics:
+        if self.config.obs_metrics or self.config.obs_flight:
+            # The flight recorder's step ring needs the phase deltas, so
+            # OBS_FLIGHT implies engine step timing even without
+            # OBS_METRICS (same clocks, no new series).
             self.engine.obs_step_timing = True
 
         #: HTTP threads only touch the staging deques; the engine itself is
@@ -874,7 +1050,56 @@ class PodServer:
         self._drain_clean: Optional[bool] = None
         self.drains_started = 0  # guarded_by: _mu|_work
         self.drain_forced_requests = 0  # guarded_by: _mu|_work
-        self.metrics = _ServingMetrics(obs=self.config.obs_metrics)
+        self.metrics = _ServingMetrics(
+            obs=self.config.obs_metrics,
+            lifecycle=self.config.obs_lifecycle,
+            exemplars=self.config.obs_exemplars,
+        )
+        # -- KV-capacity observability (off = None, no hooks) --------------
+        #: block-lifecycle ledger + reuse-distance MRC (OBS_LIFECYCLE)
+        self.lifecycle = None
+        self.mrc = None
+        if self.config.obs_lifecycle:
+            self.lifecycle = lifecycle_mod.BlockLifecycleLedger(
+                ring=self.config.obs_lifecycle_ring,
+                on_transition=self.metrics.observe_tier_transition,
+                on_residency=self.metrics.observe_tier_residency,
+            )
+            self.mrc = lifecycle_mod.ReuseDistanceEstimator(
+                sample_rate=self.config.obs_mrc_sample,
+                max_tracked=self.config.obs_mrc_tracked,
+                on_distance=self.metrics.observe_reuse_distance,
+            )
+            self.engine.block_manager.attach_lifecycle(self.lifecycle, self.mrc)
+        #: anomaly-triggered flight recorder (OBS_FLIGHT)
+        self.flight = None
+        if self.config.obs_flight:
+            from ..obs.flight import FlightRecorder
+
+            self.flight = FlightRecorder(
+                ring=self.config.obs_flight_ring,
+                out_dir=self.config.obs_flight_dir,
+                pod=self.config.pod_identifier,
+            )
+        #: RequestAudit events published (OBS_AUDIT)
+        self.audits_published = 0  # guarded_by: _mu|_work
+        #: in-process SLO burn-rate recorder (OBS_SLO; None = off). A
+        #: malformed spec raises here, at construction: a silently dropped
+        #: objective would read as a perfectly green SLO.
+        self.slo = None
+        if self.config.obs_slo.strip():
+            from ..obs.slo import SLORecorder, parse_slo_spec, parse_windows
+
+            self.slo = SLORecorder(
+                parse_slo_spec(self.config.obs_slo),
+                windows_s=parse_windows(self.config.obs_slo_windows),
+                # An SLO burn crossing is the flight recorder's primary
+                # trigger. No recorder (OBS_FLIGHT off) = no burn checks.
+                on_burn=self._on_slo_burn if self.flight is not None else None,
+                burn_threshold=(
+                    self.config.obs_flight_burn if self.flight is not None else 0.0
+                ),
+            )
         self._running = False  # guarded_by: _mu|_work
         self._failed: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
@@ -923,6 +1148,25 @@ class PodServer:
         self.snapshots_published = 0  # guarded_by: _mu|_work
         self._self_heal_stop = threading.Event()
         self._self_heal_thread: Optional[threading.Thread] = None
+        # -- live migration (FLEET_CONTROLLER; off = nothing below runs) ----
+        #: freeze+export requests staged for the engine loop:
+        #: (request_id, future -> (seq, MigrationPayload) | None)
+        self._migrate_freezes: deque[tuple[str, Future]] = deque()  # guarded_by: _mu|_work
+        #: migration verdicts staged for the engine loop:
+        #: (seq, migrated: bool, future)
+        self._migrate_settles: deque[tuple] = deque()  # guarded_by: _mu|_work
+        #: inbound migrations staged for the engine loop:
+        #: (source_pod, MigrationPayload, future -> (accepted, resumed))
+        self._migrations_in: deque[tuple] = deque()  # guarded_by: _mu|_work
+        #: continuation futures of migrated-in sequences, request_id ->
+        #: Future (resolves with the resumed sequence)
+        self._migrated_in_futures: dict[str, Future] = {}  # guarded_by: _mu|_work
+        #: controller read hop: zero-arg callables run on the engine loop
+        #: (warm-chain walks, live-request snapshots)
+        self._controller_reads: deque[tuple] = deque()  # guarded_by: _mu|_work
+        self.migrations_out = 0  # sequences resumed on a peer  # guarded_by: _mu|_work
+        self.migrations_in = 0  # sequences resumed here  # guarded_by: _mu|_work
+        self.migration_fallbacks = 0  # -> local recompute  # guarded_by: _mu|_work
         if self.config.transfer_endpoint:
             self._transfer_service = KVTransferService(
                 TransferServiceConfig(
@@ -932,6 +1176,12 @@ class PodServer:
                 ),
                 handler=self._serve_export,
                 tracer=self.tracer,
+                # Live-migration acceptance rides FLEET_CONTROLLER: off
+                # answers with the tolerant refusal the source reads as
+                # "resume locally".
+                migrate_handler=(
+                    self._serve_migrate if self.config.fleet_controller else None
+                ),
             )
 
     # -- lifecycle ----------------------------------------------------------
@@ -980,6 +1230,7 @@ class PodServer:
             self._drain_done.wait()
             return bool(self._drain_clean)
         self.metrics.observe_drain("started")
+        self._flight_event("drain_started")
         log.warning(
             "drain started",
             pod=self.config.pod_identifier,
@@ -1028,6 +1279,7 @@ class PodServer:
         self._drain_clean = clean
         if clean:
             self.metrics.observe_drain("completed")
+        self._flight_event("drain_complete", clean=clean, forced=leftover)
         self._drain_done.set()
         log.warning("drain complete", pod=self.config.pod_identifier, clean=clean)
         return clean
@@ -1109,11 +1361,21 @@ class PodServer:
             transfers = (
                 list(self._transfer_exports)
                 + list(self._transfer_imports)
+                + list(self._migrate_freezes)
+                + list(self._migrate_settles)
+                + list(self._migrations_in)
+                + list(self._controller_reads)
                 + [(fut,) for fut in self._digest_requests]
             )
             self._transfer_exports.clear()
             self._transfer_imports.clear()
+            self._migrate_freezes.clear()
+            self._migrate_settles.clear()
+            self._migrations_in.clear()
+            self._controller_reads.clear()
             self._digest_requests.clear()
+            migrated_futs = list(self._migrated_in_futures.values())
+            self._migrated_in_futures.clear()
             self._import_dones.clear()
             jobs = list(self._pull_jobs.values())
             self._pull_jobs.clear()
@@ -1133,7 +1395,7 @@ class PodServer:
             fut = item[-1]
             if not fut.done():
                 fut.set_exception(exc)
-        for fut in list(self._futures.values()):
+        for fut in list(self._futures.values()) + migrated_futs:
             if not fut.done():
                 fut.set_exception(exc)
         self._futures.clear()
@@ -1154,8 +1416,37 @@ class PodServer:
             # cannot be recalled, but the worker installs nothing.
             job["cancel"].set()
         self.metrics.observe_finished(seq)
+        if self.slo is not None:
+            # The same measurements the latency histograms observe.
+            self.slo.observe(seq.ttft, seq.mean_itl)
         if seq.trace_span is not None:
             self._emit_request_spans(seq)
+        if (
+            self.config.obs_audit
+            and self._publisher is not None
+            and seq.prefill_start_time is not None
+        ):
+            # Realized-hit ground truth for the route audit: how many prompt
+            # blocks this pod's prefix cache served at first prefill. A
+            # request that never reached prefill realized nothing
+            # measurable. Failures are swallowed like heartbeats: auditing
+            # must never fail a request.
+            try:
+                self._publisher.publish(
+                    [
+                        RequestAudit(
+                            request_id=seq.request_id or "",
+                            realized_blocks=(
+                                seq.num_cached_prompt
+                                // max(self.config.engine.block_manager.page_size, 1)
+                            ),
+                        )
+                    ]
+                )
+                with self._mu:
+                    self.audits_published += 1
+            except Exception:
+                log.exception("RequestAudit publish failed")
         fut = self._futures.pop(seq.seq_id, None)
         if fut is not None:
             self._forget_pending(seq.user_prompt_len)
@@ -1208,6 +1499,23 @@ class PodServer:
             span.set_attr("error", seq.error)
         span.end(end_mono=end)
 
+    # -- flight recorder (OBS_FLIGHT) ----------------------------------------
+    def _on_slo_burn(self, objective: str, window: str, rate: float) -> None:
+        """SLORecorder burn-crossing callback: the flight recorder's
+        primary trigger. The burn sample itself rides the timeline, so a
+        dump always holds what tripped it."""
+        flight = self.flight
+        if flight is None:
+            return
+        flight.record_event("slo_burn", objective=objective, window=window, rate=round(rate, 4))
+        flight.trigger("slo_burn", objective=objective, window=window, rate=round(rate, 4))
+
+    def _flight_event(self, kind: str, **attrs) -> None:
+        """Record a fleet event on the flight ring (noop with the knob
+        off): breaker transitions, resyncs, drains, sheds and migrations."""
+        if self.flight is not None:
+            self.flight.record_event(kind, **attrs)
+
     def _engine_loop(self) -> None:
         try:
             while True:
@@ -1222,6 +1530,10 @@ class PodServer:
                         or self._transfer_imports
                         or self._digest_requests
                         or self._import_dones
+                        or self._migrate_freezes
+                        or self._migrate_settles
+                        or self._migrations_in
+                        or self._controller_reads
                         or self.engine.has_ready_work
                     ):
                         self._work.wait(timeout=0.1)
@@ -1239,6 +1551,14 @@ class PodServer:
                     self._digest_requests.clear()
                     import_dones = list(self._import_dones)
                     self._import_dones.clear()
+                    freezes = list(self._migrate_freezes)
+                    self._migrate_freezes.clear()
+                    settles = list(self._migrate_settles)
+                    self._migrate_settles.clear()
+                    migrations_in = list(self._migrations_in)
+                    self._migrations_in.clear()
+                    controller_reads = list(self._controller_reads)
+                    self._controller_reads.clear()
                 # Digests first: the snapshot callback publishes here, on
                 # the engine loop, ordered with the KV-event stream.
                 for fut in digests:
@@ -1262,6 +1582,29 @@ class PodServer:
                 # step its pages are committed.
                 for seq in import_dones:
                     seq.importing = False
+                # Migration work in causal order: freezes (park + export)
+                # before settles (commit or roll back an earlier freeze)
+                # before inbound admissions.
+                for rid, fut in freezes:
+                    try:
+                        fut.set_result(self._freeze_for_migration(rid))
+                    except Exception as e:
+                        fut.set_exception(e)
+                for seq, migrated, fut in settles:
+                    try:
+                        fut.set_result(self._settle_migration(seq, migrated))
+                    except Exception as e:
+                        fut.set_exception(e)
+                for source_pod, migration, fut in migrations_in:
+                    try:
+                        fut.set_result(self._admit_migration(source_pod, migration))
+                    except Exception as e:
+                        fut.set_exception(e)
+                for call, fut in controller_reads:
+                    try:
+                        fut.set_result(call())
+                    except Exception as e:
+                        fut.set_exception(e)
                 for tokens, sampling, deadline, rid, fut, span, action, pull in staged:
                     try:
                         seq = self.engine.add_request(
@@ -1279,7 +1622,7 @@ class PodServer:
                     seq.route_action = action
                     self._futures[seq.seq_id] = fut
                     if pull is not None:
-                        self._start_async_pull(seq, pull)
+                        self._start_async_pull(seq, pull, span)
                 # Aborts AFTER admissions: a submit-then-abort staged in the
                 # same cycle must find its sequence in the engine.
                 for rid, afut in aborts:
@@ -1316,6 +1659,18 @@ class PodServer:
                                 else 0.7 * self._loop_lag_s + 0.3 * sample
                             )
                     finished = self.engine.step()
+                    if self.flight is not None:
+                        # Per-step telemetry onto the flight ring: phase
+                        # deltas (step timing is on under the knob) and the
+                        # occupancy, free-page and loop-lag gauges.
+                        sch_f = self.engine.scheduler
+                        self.flight.record_step(
+                            self.engine.step_stats,
+                            occupancy=len(sch_f.running)
+                            / max(self.config.engine.decode_batch_size, 1),
+                            free_pages=self.engine.block_manager.num_free,
+                            loop_lag_s=self._loop_lag_s,
+                        )
                     lp = self.engine.last_prefetch
                     if lp is not None:
                         # Host-tier bring-back ran ahead of the scheduler
@@ -1428,6 +1783,14 @@ class PodServer:
                 self._publisher.publish([IndexSnapshot(blocks_by_medium=digest)])
                 with self._mu:
                     self.snapshots_published += 1
+                if self.flight is not None:
+                    # A resync is a repair worth a postmortem: the timeline
+                    # before it explains what the index was repaired from
+                    # (dumps are rate-limited per reason).
+                    self.flight.record_event(
+                        "resync", blocks={m: len(h) for m, h in digest.items()}
+                    )
+                    self.flight.trigger("resync")
                 done.set_result(True)
             except Exception:
                 log.exception("index snapshot publish failed")
@@ -1497,32 +1860,169 @@ class PodServer:
         with self._mu:
             if not self._running:
                 return None
-        return self._transfer_pool.get(endpoint)
+        client = self._transfer_pool.get(endpoint)
+        if (
+            client is not None
+            and self.flight is not None
+            and client.breaker is not None
+            and client.breaker.on_transition is None
+        ):
+            # A breaker opening is a flight trigger (a dead peer explains
+            # the burn that usually follows); every transition rides the
+            # timeline. Wired once per pooled client.
+            def _breaker_cb(state: str, endpoint: str = endpoint) -> None:
+                flight = self.flight
+                if flight is None:
+                    return
+                flight.record_event("breaker", endpoint=endpoint, state=state)
+                if state == "open":
+                    flight.trigger("breaker_open", endpoint=endpoint)
 
-    def pull_prefix(
+            client.breaker.on_transition = _breaker_cb
+        return client
+
+    # -- live sequence migration (FLEET_CONTROLLER) --------------------------
+    def migrate_out(
         self,
-        prompt_tokens: list[int],
+        request_id: str,
+        target_endpoint: str,
+        timeout_s: Optional[float] = None,
+    ) -> bool:
+        """Live-migrate one in-flight request to the pod serving
+        ``target_endpoint`` (its transfer endpoint). The engine loop
+        freezes the sequence preemption-style (generated tokens fold into
+        the prompt; registered pages survive in the prefix cache) and
+        exports its KV chain in the same cycle; this thread ships the
+        decode state and the chain over the transfer plane; on the target's
+        ``resumed`` ack the local half finishes with
+        ``finish_reason="migrated"`` (its submit future resolves with the
+        partial sequence; the target's continuation carries the rest). Any
+        failure (dead target, refusal, timeout, undecodable ack) rolls back
+        to local recompute: the sequence re-enters scheduling as a
+        preemption would, pages back to baseline. Returns True only when
+        the target resumed the sequence. ``FLEET_CONTROLLER`` off = False
+        without touching the engine."""
+        if not self.config.fleet_controller:
+            return False
+        wait = max(self.config.transfer_timeout_s * 3, 30.0)
+        fut: Future = Future()
+        with self._work:
+            if not self._running or self._failed is not None:
+                return False
+            self._migrate_freezes.append((request_id, fut))
+            self._work.notify()
+        try:
+            frozen = fut.result(timeout=wait)
+        except Exception:
+            log.exception("migration freeze failed", request=request_id)
+            return False
+        if frozen is None:
+            return False  # not live here (finished, unknown, or importing)
+        seq, payload = frozen
+        resumed = False
+        client = self._get_client(target_endpoint)
+        if client is not None:
+            try:
+                _accepted, resumed = client.migrate(
+                    self.config.model_name,
+                    self.config.pod_identifier,
+                    payload,
+                    timeout_s=timeout_s,
+                )
+            except TransferError as e:
+                log.warning(
+                    "migration transfer failed; resuming locally",
+                    request=request_id,
+                    target=target_endpoint,
+                    error=str(e),
+                )
+            except Exception:
+                log.exception("migration transfer failed; resuming locally")
+        sfut: Future = Future()
+        with self._work:
+            if not self._running or self._failed is not None:
+                return False
+            self._migrate_settles.append((seq, resumed, sfut))
+            self._work.notify()
+        try:
+            ok = bool(sfut.result(timeout=wait))
+        except Exception:
+            log.exception("migration settle failed", request=request_id)
+            return False
+        with self._mu:
+            if ok:
+                self.migrations_out += 1
+            else:
+                self.migration_fallbacks += 1
+        self._flight_event(
+            "migration",
+            direction="out",
+            request=request_id,
+            target=target_endpoint,
+            resumed=ok,
+            blocks=len(payload.blocks),
+            tokens=len(payload.token_ids),
+        )
+        return ok
+
+    def migrated_future(self, request_id: str) -> Optional[Future]:
+        """The continuation future of a request migrated into this pod
+        (resolves with the resumed sequence, whose ``generated_tokens`` is
+        the request's whole output). None when no such migration was
+        admitted. Entries are kept for the pod's lifetime."""
+        with self._mu:
+            return self._migrated_in_futures.get(request_id)
+
+    def _controller_read(self, call):
+        """Run a zero-arg callable on the engine loop and wait: the fleet
+        controller's read hop into engine-owned state (scheduler queues,
+        the prefix cache). Returns None when the pod is down."""
+        fut: Future = Future()
+        with self._work:
+            if not self._running or self._failed is not None:
+                return None
+            self._controller_reads.append((call, fut))
+            self._work.notify()
+        return fut.result(timeout=max(self.config.transfer_timeout_s * 3, 30.0))
+
+    def live_requests(self) -> list[str]:
+        """Request ids of every live (admitted, unfinished) sequence, the
+        controller's scale-down migration plan, read on the engine loop so
+        it never tears against a step."""
+
+        def read() -> list[str]:
+            sch = self.engine.scheduler
+            return [
+                seq.request_id
+                for bucket in (sch.waiting, sch.prefilling, sch.running)
+                for seq in bucket
+                if not seq.is_finished()
+            ]
+
+        return self._controller_read(read) or []
+
+    def warm_chains(self, limit: int) -> list[list[int]]:
+        """Chain-ordered block-hash lists of this pod's hottest resident
+        prefix chains (longest first): the donor side of a scale-up's warm
+        revival. Empty with ``FLEET_CONTROLLER`` off."""
+        if not self.config.fleet_controller or limit <= 0:
+            return []
+        return (
+            self._controller_read(lambda: self.engine.block_manager.hot_chains(limit))
+            or []
+        )
+
+    def revive_chain(
+        self,
+        chain_hashes: list[int],
         source_endpoint: str,
         timeout_s: Optional[float] = None,
-        deadline: Optional[float] = None,
     ) -> int:
-        """Pull ``prompt_tokens``' warm prefix from a peer's export service
-        and commit it here (the router's pull-then-compute arm). Returns
-        the blocks imported; 0 on any failure: a pull is an optimisation,
-        so every error degrades to cold prefill, never to a failed request.
-        ``deadline`` (absolute monotonic, the request's): the fetch and the
-        import wait are clamped to the budget left, and a pull with none
-        left is skipped."""
-        fetch_timeout: Optional[float] = None  # None = the client's own
-        wait_timeout = timeout_s or self.config.transfer_timeout_s * 3
-        if deadline is not None:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                return 0
-            fetch_timeout = min(self.config.transfer_timeout_s, remaining)
-            wait_timeout = min(wait_timeout, remaining)
-        hashes = self.engine.block_manager.token_db.prefix_hashes(prompt_tokens)
-        if not hashes:
+        """Warm revival on a scale-up: pull one chain (hashes in chain
+        order, from a donor's ``warm_chains``) over the transfer plane and
+        commit it here. Returns the blocks imported; 0 on any failure (the
+        new pod just starts colder) and with ``FLEET_CONTROLLER`` off."""
+        if not self.config.fleet_controller or not chain_hashes:
             return 0
         client = self._get_client(source_endpoint)
         if client is None:
@@ -1530,9 +2030,215 @@ class PodServer:
         try:
             blocks, _complete = client.fetch(
                 self.config.model_name,
+                list(chain_hashes),
+                self.config.transfer_max_blocks,
+                timeout_s=timeout_s,
+            )
+            if not blocks:
+                return 0
+            return self.submit_import(blocks, source_pod=source_endpoint).result(
+                timeout=timeout_s or max(self.config.transfer_timeout_s * 3, 30.0)
+            )
+        except (TransferError, RuntimeError, FuturesTimeout) as e:
+            log.warning(
+                "warm revival pull failed; starting cold",
+                source=source_endpoint,
+                error=repr(e),
+            )
+            return 0
+
+    def _freeze_for_migration(self, request_id: str):
+        """Engine-loop half of ``migrate_out``: freeze the sequence and
+        build the wire payload (decode state + exported KV chain) in one
+        loop cycle, so no eviction can come between the freeze releasing
+        the pages and the export reading them. The freeze commits an
+        in-flight pipelined burst first; the export's gather and copy back
+        to the host finish before it returns."""
+        frozen = self.engine.freeze_for_migration(request_id)
+        if frozen is None:
+            return None
+        seq, hashes = frozen
+        blocks = self.engine.export_kv_blocks(hashes) if hashes else []
+        payload = MigrationPayload(
+            request_id=request_id,
+            token_ids=list(seq.prompt_tokens),  # after the fold: the full history
+            user_prompt_len=seq.user_prompt_len,
+            num_generated=seq.num_generated,
+            max_new_tokens=seq.sampling.max_new_tokens,
+            temperature=seq.sampling.temperature,
+            top_k=seq.sampling.top_k,
+            top_p=seq.sampling.top_p,
+            stop_token_ids=tuple(seq.sampling.stop_token_ids),
+            deadline_remaining_s=(
+                max(seq.deadline - time.monotonic(), 0.0)
+                if seq.deadline is not None
+                else None
+            ),
+            blocks=blocks,
+        )
+        return seq, payload
+
+    def _settle_migration(self, seq: Sequence, migrated: bool) -> bool:
+        """Engine-loop half of ``migrate_out``'s verdict: commit (finish
+        the local half; its future resolves) or roll back (clear
+        ``importing`` so the scheduler re-admits the folded sequence)."""
+        if seq.is_finished():
+            # Aborted or shed while the wire transfer ran: its future
+            # already resolved; nothing to settle.
+            return False
+        if not migrated:
+            self.engine.cancel_migration(seq)
+            return False
+        self.engine.finish_migrated(seq)
+        self._resolve(seq)
+        return True
+
+    def _serve_migrate(self, source_pod: str, migration) -> tuple[int, bool]:
+        """The transfer service's migrate handler (service thread): hop
+        onto the engine loop (install the chain, admit the continuation
+        through the ``importing`` state) and wait for the verdict. A
+        draining pod refuses (``resumed=False``): the source resumes
+        locally rather than migrating onto a pod about to go."""
+        fut: Future = Future()
+        with self._work:
+            if not self._running or self._failed is not None or self._draining:
+                return 0, False
+            self._migrations_in.append((source_pod, migration, fut))
+            self._work.notify()
+        return fut.result(timeout=max(self.config.transfer_timeout_s * 3, 30.0))
+
+    def _admit_migration(self, source_pod: str, migration) -> tuple[int, bool]:
+        """Engine-loop half of an inbound migration: install the shipped
+        chain, then admit the continuation with the full token history as
+        its prompt (the ``fold_for_preemption`` form, so the warm prefill
+        hits the imported pages and greedy decode resumes where the source
+        stopped), entering through the ``importing`` state, cleared next
+        cycle. The continuation counts in ``queue_depth`` and the admission
+        totals from here until ``_resolve`` releases it, as a submitted
+        request does."""
+        installed = 0
+        if migration.blocks:
+            try:
+                installed = self.engine.import_kv_blocks(
+                    migration.blocks, source_pod=source_pod
+                )
+            except Exception:
+                # Geometry and chain failures already degrade inside
+                # import_kv_blocks; anything past that just means the
+                # continuation prefills colder.
+                log.exception("migration import failed; continuation recomputes")
+        sampling = SamplingParams(
+            max_new_tokens=migration.max_new_tokens,
+            temperature=migration.temperature,
+            top_k=migration.top_k,
+            top_p=migration.top_p,
+            stop_token_ids=tuple(migration.stop_token_ids),
+        )
+        try:
+            seq = self.engine.add_request(
+                list(migration.token_ids),
+                sampling,
+                request_id=migration.request_id,
+                deadline=(
+                    time.monotonic() + migration.deadline_remaining_s
+                    if migration.deadline_remaining_s is not None
+                    else None
+                ),
+            )
+        except ValueError as e:
+            log.warning(
+                "refusing migration; source resumes locally",
+                request=migration.request_id,
+                error=str(e),
+            )
+            return installed, False
+        # Continue the source's bookkeeping: with the generated tokens
+        # folded into the prompt, ``generated_tokens`` and the
+        # max_new_tokens and stop conditions line up with an unmigrated run.
+        seq.user_prompt_len = migration.user_prompt_len
+        seq.num_generated = migration.num_generated
+        seq.importing = True
+        fut: Future = Future()
+        fut.request_id = migration.request_id
+        self._futures[seq.seq_id] = fut
+        with self._work:
+            self._pending += 1
+            # _resolve releases user_prompt_len tokens; mirror it here.
+            self._pending_tokens += seq.user_prompt_len
+            self._migrated_in_futures[migration.request_id] = fut
+            self.migrations_in += 1
+            self._import_dones.append(seq)
+            self._work.notify()
+        self._flight_event(
+            "migration",
+            direction="in",
+            source=source_pod,
+            request=migration.request_id,
+            blocks=installed,
+            tokens=len(migration.token_ids),
+        )
+        return installed, True
+
+    def pull_prefix(
+        self,
+        prompt_tokens: list[int],
+        source_endpoint: str,
+        timeout_s: Optional[float] = None,
+        deadline: Optional[float] = None,
+        trace_ctx=None,
+    ) -> int:
+        """Pull ``prompt_tokens``' warm prefix from a peer's export service
+        and commit it here (the router's pull-then-compute arm). Returns
+        the blocks imported; 0 on any failure: a pull is an optimisation,
+        so every error degrades to cold prefill, never to a failed request.
+        ``deadline`` (absolute monotonic, the request's): the fetch and the
+        import wait are clamped to the budget left, and a pull with none
+        left is skipped. ``trace_ctx``: parent span context; the
+        ``pod.pull_prefix`` span (and, through the transfer envelope's
+        traceparent, the exporting peer's spans) joins that trace."""
+        span = self.tracer.start_span(
+            "pod.pull_prefix",
+            parent=trace_ctx,
+            attrs={"source": source_endpoint, "pod": self.config.pod_identifier},
+        )
+        t_pull = time.monotonic()
+
+        def done(n: int, outcome: str) -> int:
+            span.set_attr("outcome", outcome)
+            span.set_attr("imported_blocks", n)
+            span.end()
+            self.metrics.observe_pull(
+                time.monotonic() - t_pull,
+                outcome,
+                trace_id=span.context.trace_id if span.context is not None else None,
+            )
+            return n
+
+        fetch_timeout: Optional[float] = None  # None = the client's own
+        wait_timeout = timeout_s or self.config.transfer_timeout_s * 3
+        if deadline is not None:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                # Budget spent before the fetch: not "the peer had
+                # nothing", the overload signal the outcome label exposes.
+                return done(0, "skipped")
+            fetch_timeout = min(self.config.transfer_timeout_s, remaining)
+            wait_timeout = min(wait_timeout, remaining)
+        hashes = self.engine.block_manager.token_db.prefix_hashes(prompt_tokens)
+        if not hashes:
+            return done(0, "empty")
+        client = self._get_client(source_endpoint)
+        if client is None:
+            return done(0, "skipped")
+        try:
+            blocks, _complete = client.fetch(
+                self.config.model_name,
                 hashes,
                 self.config.transfer_max_blocks,
                 timeout_s=fetch_timeout,
+                traceparent=(
+                    format_traceparent(span.context) if span.context is not None else None
+                ),
             )
             imported = (
                 self.submit_import(blocks, source_pod=source_endpoint).result(
@@ -1549,14 +2255,15 @@ class PodServer:
                 source=source_endpoint,
                 error=repr(e),
             )
-            return 0
+            span.set_attr("error", repr(e))
+            return done(0, "failed")
         if imported:
             with self._mu:
                 self.transfer_pulls += 1
-        return imported
+        return done(imported, "ok" if imported else "empty")
 
     # -- async prefix import (ASYNC_PULL) -----------------------------------
-    def _start_async_pull(self, seq: Sequence, source: str) -> None:
+    def _start_async_pull(self, seq: Sequence, source: str, span) -> None:
         """Flip a just-admitted sequence into the ``importing`` state and
         hand its prefix fetch to the worker pool (engine loop only). The
         scheduler skips the sequence, admitting later arrivals past it,
@@ -1575,8 +2282,9 @@ class PodServer:
             pool = self._pull_pool
             self._pull_jobs[seq.seq_id] = job
         seq.importing = True
+        trace_ctx = span.context if span is not None else None
         try:
-            pool.submit(self._async_pull_worker, seq, source, job)
+            pool.submit(self._async_pull_worker, seq, source, job, trace_ctx)
         except RuntimeError:  # the executor shut down meanwhile
             seq.importing = False
             with self._mu:
@@ -1593,20 +2301,29 @@ class PodServer:
             else:
                 seq.importing = False  # the loop is gone; unblock directly
 
-    def _async_pull_worker(self, seq: Sequence, source: str, job: dict) -> None:
+    def _async_pull_worker(self, seq: Sequence, source: str, job: dict, trace_ctx) -> None:
         """Background prefix import of one sequence (worker thread): fetch
         its warm chain from ``source``, install it through the engine loop,
         then release the sequence to the scheduler. Every exit releases it:
         a failure means cold prefill, never a stuck or failed request. The
         fetch is clamped to the request's remaining deadline, and an open
-        breaker fails it at once."""
+        breaker fails it at once. The ``pod.pull_prefix`` span carries the
+        async and overlap attributes: ``overlap`` is the part of the pull
+        hidden behind other work (before the scheduler first wanted this
+        sequence)."""
+        span = self.tracer.start_span(
+            "pod.pull_prefix",
+            parent=trace_ctx,
+            attrs={"source": source, "pod": self.config.pod_identifier, "async": True},
+        )
+        t0 = time.monotonic()
         imported = 0
         outcome = "failed"
         try:
             fetch_timeout: Optional[float] = None
             wait_timeout = self.config.transfer_timeout_s * 3
             if seq.deadline is not None:
-                remaining = seq.deadline - time.monotonic()
+                remaining = seq.deadline - t0
                 if remaining <= 0:
                     outcome = "skipped"
                     return
@@ -1625,6 +2342,9 @@ class PodServer:
                 hashes,
                 self.config.transfer_max_blocks,
                 timeout_s=fetch_timeout,
+                traceparent=(
+                    format_traceparent(span.context) if span.context is not None else None
+                ),
             )
             if job["cancel"].is_set():
                 # The sequence died while the bytes were in flight: install
@@ -1644,8 +2364,10 @@ class PodServer:
                 seq=seq.seq_id,
                 error=repr(e),
             )
+            span.set_attr("error", repr(e))
             outcome = "failed"
         finally:
+            t1 = time.monotonic()
             if outcome != "ok" and job["cancel"].is_set():
                 # The sequence died while the fetch was in flight: a cancel,
                 # not a fallback (no sequence is left to fall back).
@@ -1659,6 +2381,22 @@ class PodServer:
                 elif outcome == "failed":
                     self.transfer_pull_failures += 1
                     self.async_pull_fallbacks += 1
+            # Overlap: the time before the scheduler first wanted this
+            # sequence was hidden behind other work; the rest was exposed
+            # (it held this sequence's prefill).
+            wanted = seq.import_wanted_time
+            hidden = t1 - t0 if wanted is None else min(max(wanted - t0, 0.0), t1 - t0)
+            exposed = (t1 - t0) - hidden
+            span.set_attr("outcome", outcome)
+            span.set_attr("imported_blocks", imported)
+            span.set_attr("overlap", round(hidden, 6))
+            span.end()
+            self.metrics.observe_pull(
+                t1 - t0,
+                outcome,
+                trace_id=span.context.trace_id if span.context is not None else None,
+            )
+            self.metrics.observe_pull_overlap(hidden, exposed)
             self._finish_async_pull(seq)
 
     # -- request path -------------------------------------------------------
@@ -1695,6 +2433,7 @@ class PodServer:
         if cfg.admission_max_waiting > 0 and depth >= cfg.admission_max_waiting:
             self.admission_rejected += 1
             self.metrics.observe_rejected(draining=False)
+            self._flight_event("admission_reject", cap="waiting", depth=depth)
             raise AdmissionError(
                 f"overloaded: {depth} requests waiting >= "
                 f"ADMISSION_MAX_WAITING={cfg.admission_max_waiting}",
@@ -1706,6 +2445,7 @@ class PodServer:
         ):
             self.admission_rejected += 1
             self.metrics.observe_rejected(draining=False)
+            self._flight_event("admission_reject", cap="tokens", queued_tokens=queued_tokens)
             raise AdmissionError(
                 f"overloaded: {queued_tokens} + {n_tokens} queued prompt "
                 f"tokens > ADMISSION_MAX_QUEUED_TOKENS="
@@ -1760,6 +2500,7 @@ class PodServer:
             if self._draining:
                 self.admission_rejected_draining += 1
                 self.metrics.observe_rejected(draining=True)
+                self._flight_event("admission_reject", cap="draining")
                 raise DrainingError("pod is draining; retry against another pod")
             self._check_admission(len(prompt_tokens))
             # The span starts at submit (queueing time includes staging),
@@ -2006,6 +2747,11 @@ class PodServer:
                 async_pulls = self.async_pulls
                 async_fallbacks = self.async_pull_fallbacks
                 async_canceled = self.async_pull_canceled
+                audits_published = self.audits_published
+                # Fleet-controller counters in the same cut.
+                migrations_out = self.migrations_out
+                migrations_in = self.migrations_in
+                migration_fallbacks = self.migration_fallbacks
             payload = {
                 "pod": self.config.pod_identifier,
                 "model": self.config.model_name,
@@ -2090,21 +2836,84 @@ class PodServer:
                     },
                     "loop_lag_s": self._loop_lag_s,
                 }
+            if self.config.obs_audit:
+                payload["audit"] = {"published": audits_published}
+            if self.slo is not None:
+                # Only when OBS_SLO configured an objective.
+                payload["slo"] = self.slo.snapshot()
+            if self.config.obs_lifecycle:
+                payload["lifecycle"] = {
+                    **self.lifecycle.snapshot(),
+                    "mrc": self.mrc.snapshot(),
+                }
+            if self.config.obs_flight:
+                payload["flight"] = self.flight.snapshot()
+            if self.config.fleet_controller:
+                payload["fleet"] = {
+                    "migrations_out": migrations_out,
+                    "migrations_in": migrations_in,
+                    "migration_fallbacks": migration_fallbacks,
+                    "migrations_served": (
+                        self._transfer_service.migrations_served
+                        if self._transfer_service
+                        else 0
+                    ),
+                    "migration_blocks_accepted": (
+                        self._transfer_service.migration_blocks_accepted
+                        if self._transfer_service
+                        else 0
+                    ),
+                }
             return web.json_response(payload)
 
         async def metrics(_request: web.Request) -> web.Response:
+            if self.slo is not None:
+                # Scrape-driven: the burn rates recompute here.
+                self.slo.sync_gauges(self.metrics.set_slo_burn)
             body = self.metrics.exposition()
             if body is None:
                 return web.json_response(
                     {"error": "prometheus_client not installed"}, status=501
                 )
-            return web.Response(body=body, headers={"Content-Type": "text/plain"})
+            return web.Response(
+                body=body, headers={"Content-Type": self.metrics.exposition_content_type()}
+            )
 
         async def debug_traces(request: web.Request) -> web.Response:
             """Finished traces from the bounded ring, filterable by
             ``?trace_id=`` / ``?request_id=``. Empty (with enabled=false)
             when OBS_TRACING is off — the endpoint itself is harmless."""
             status, payload = debug_traces_payload(self.tracer, request.query)
+            return web.json_response(payload, status=status)
+
+        async def debug_lifecycle(request: web.Request) -> web.Response:
+            """Recent block tier transitions from the bounded ledger ring,
+            filterable by ``?chain=`` / ``?block=`` hash. Reports itself
+            disabled until OBS_LIFECYCLE."""
+            status, payload = lifecycle_mod.debug_lifecycle_payload(
+                self.lifecycle, request.query
+            )
+            return web.json_response(payload, status=status)
+
+        async def debug_mrc(request: web.Request) -> web.Response:
+            """The sampled miss-ratio-vs-capacity curve, plus each tier's
+            cumulative capacity read off it. Disabled-shaped until
+            OBS_LIFECYCLE."""
+            bm_cfg = self.config.engine.block_manager
+            caps = {"tpu_hbm": bm_cfg.total_pages - 1}
+            if bm_cfg.host_pages > 0:
+                caps["tpu_hbm+host_dram"] = bm_cfg.total_pages - 1 + bm_cfg.host_pages
+            status, payload = lifecycle_mod.debug_mrc_payload(
+                self.mrc, tier_capacities=caps, query=request.query
+            )
+            return web.json_response(payload, status=status)
+
+        async def debug_flight(request: web.Request) -> web.Response:
+            """Flight-recorder counters and the latest triggered timeline
+            (causally ordered). Disabled-shaped until OBS_FLIGHT."""
+            from ..obs.flight import debug_flight_payload
+
+            status, payload = debug_flight_payload(self.flight, query=request.query)
             return web.json_response(payload, status=status)
 
         async def debug_profile(request: web.Request) -> web.Response:
@@ -2163,6 +2972,9 @@ class PodServer:
         app.router.add_get("/stats", stats)
         app.router.add_get("/metrics", metrics)
         app.router.add_get("/debug/traces", debug_traces)
+        app.router.add_get("/debug/lifecycle", debug_lifecycle)
+        app.router.add_get("/debug/mrc", debug_mrc)
+        app.router.add_get("/debug/flight", debug_flight)
         app.router.add_post("/debug/profile", debug_profile)
         return app
 

@@ -71,6 +71,13 @@ COPIES = [
     "server/api.py",
     # The fleet contract.
     "kvcache/router.py",
+    # The fleet's control loops.
+    "obs/slo.py",
+    "obs/flight.py",
+    "kvcache/controller/fleet.py",
+    "kvcache/controller/inprocess.py",
+    "kvcache/controller/__init__.py",
+    "server/sampling.py",
 ]
 
 #: Sources copied byte for byte.
