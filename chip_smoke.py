@@ -64,6 +64,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 import time
 
 import numpy as np
@@ -710,7 +711,7 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
          fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True,
-         fleet_controller=True),
+         fleet_controller=True, disagg_tiers=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
          fast_path=True),
@@ -1081,6 +1082,11 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         label = path["label"] + "_fleet_controller"
         result, by_path[label] = fleet_controller(pkg, ops, dev, card, eng.params, cfg)
         emit(dict(result, path=label))
+    if path.get("disagg_tiers"):
+        label = path["label"] + "_disagg_tiers"
+        steps, by_path[label] = disagg_tiers(pkg, ops, dev, card, eng.params, cfg)
+        for step in steps:
+            emit(dict(step, path=label))
     return by_path
 
 
@@ -2210,11 +2216,13 @@ class FleetPod:
     HTTP app on a loopback port, publishing to the scorer over ZMQ."""
 
     def __init__(self, pkg, dev, params, cfg, scorer: Scorer, name: str, pages: int,
-                 profile_dir: str, **knobs):
+                 profile_dir: str, engine_knobs=None, **knobs):
+        """``engine_knobs``: further ``EngineConfig`` fields (``host_pages``
+        among them); ``knobs``: further ``PodServerConfig`` fields."""
         server, serve = pkg["server"], pkg["serve"]
         self.name = name
         self.engine = transfer_engine(server, dev, params, cfg,
-                                      dict(FAST_KNOBS, total_pages=pages))
+                                      dict(FAST_KNOBS, total_pages=pages, **(engine_knobs or {})))
         self.pod = serve.PodServer(serve.PodServerConfig(
             model_name=SCORING_MODEL, pod_identifier=name, zmq_endpoint=scorer.endpoint,
             heartbeat_interval_s=0.2, resync_interval_s=0.0, obs_tracing=True,
@@ -2775,7 +2783,7 @@ def migration_logit_move(pkg, params, cfg, tokens, cached: int, ps, dev) -> floa
 
 
 def migration_parity(pkg, eng, cfg, prompts, migrated, reference, frozen_at, cached, ps,
-                     dev) -> list[dict]:
+                     dev, phase: str = "fleet_controller") -> list[dict]:
     """Migrated greedy tokens against a never-migrated run's: equal, or the
     first difference comes after the freeze and the model's top-2 logit gap
     there (one cold prefill) is at most twice the logit move a migration makes
@@ -2789,13 +2797,13 @@ def migration_parity(pkg, eng, cfg, prompts, migrated, reference, frozen_at, cac
         d = dict(top2_gap(pkg, eng, cfg, prompts[i], a[:j], ps, dev),
                  request=i, index=j, never_migrated=a[j], migrated=b[j], frozen_at=frozen_at[i])
         if j < frozen_at[i]:
-            fail(f"fleet_controller: a migrated request's tokens differ before its freeze: {d}")
+            fail(f"{phase}: a request's tokens differ before its freeze: {d}")
         context = list(prompts[i]) + list(a[: frozen_at[i]])
         d["migration_logit_move"] = migration_logit_move(pkg, eng.params, cfg, context,
                                                          cached[i], ps, dev)
         if d["top2_gap"] > 2 * d["migration_logit_move"]:
-            fail(f"fleet_controller: migrated greedy tokens differ from the never-migrated run's "
-                 f"with a top-2 gap beyond what a migration moves the logits by: {d}")
+            fail(f"{phase}: greedy tokens differ from the reference run's with a top-2 gap "
+                 f"beyond what the change of kernel moves the logits by: {d}")
         diffs.append(d)
     return diffs
 
@@ -3249,6 +3257,472 @@ def fleet_controller(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]
     out["step_seconds"] = seconds
     out["seconds"] = time.perf_counter() - t_phase
     return out, launches
+
+
+# -- the fleet's knob-gated glue: roles, the remote tier, integrity, tenants ---------
+#: prompt tokens of every request of ``disagg_tiers``, and greedy new tokens:
+#: a disaggregated request's, a tier round's, the tenant step's batch and
+#: premium requests'
+DT_PROMPT, DT_NEW, DT_ROUND_NEW, DT_BATCH_NEW, DT_PREMIUM_NEW = 1024, 32, 8, 64, 32
+#: two classes; batch's rate budget is 8 requests in the 10 s window
+DT_QOS = "premium:prio=0,weight=4;batch:prio=1,rps=0.8"
+#: the tenant step's pool: eight batch decodes (66 pages each when premium
+#: arrives) leave 31 pages, fewer than a 1024-token premium prompt needs
+DT_QOS_PAGES = 560
+#: the kvstore pod's store: the ~400 blocks three rounds demote, plus the
+#: 256 that the pull-back's own imports evict and demote while round 1 comes
+#: back (a 512-page store would rotate out round-1 blocks not yet pulled)
+DT_STORE_PAGES = 1024
+
+
+def dt_wait(predicate, what: str, timeout: float = 60.0) -> float:
+    """Poll ``predicate`` every millisecond; seconds it took. Fails the
+    phase with ``what`` after ``timeout``."""
+    t = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - t > timeout:
+            fail(f"disagg_tiers: {what}")
+        time.sleep(0.001)
+    return time.perf_counter() - t
+
+
+class DtCounts:
+    """The prefill dispatches and decode model steps (graph warm-ups
+    included) of every engine the phase ran, read as each one retires."""
+
+    def __init__(self):
+        self.prefill = self.decode = self.engines = 0
+
+    def add(self, eng) -> None:
+        torch.cuda.synchronize()
+        self.prefill += eng.prefill_stats["dispatches"]
+        self.decode += eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps
+        self.engines += 1
+
+
+def dt_round(pod: FleetPod, server, prompts, new_tokens: int, **kw) -> list:
+    """Submit ``prompts`` together; their finished sequences, each whole."""
+    futs = [pod.pod.submit(p, server.SamplingParams(max_new_tokens=new_tokens), **kw)
+            for p in prompts]
+    seqs = [f.result(timeout=600) for f in futs]
+    for s in seqs:
+        if s.error or len(s.generated_tokens) != new_tokens:
+            fail(f"disagg_tiers: a request finished with {len(s.generated_tokens)} of "
+                 f"{new_tokens} tokens, error={s.error}")
+    return seqs
+
+
+def dt_reference(pkg, dev, params, cfg, counts: DtCounts, batches) -> list:
+    """A mixed engine's greedy tokens for each (prompts, new tokens) of
+    ``batches``, served in order on one engine (a repeat hits its cache)."""
+    eng = transfer_engine(pkg["server"], dev, params, cfg, dict(FAST_KNOBS, total_pages=1024))
+    out = [serve_greedy(pkg, eng, prompts, n)[0] for prompts, n in batches]
+    counts.add(eng)
+    del eng
+    return out
+
+
+def dt_disagg(pkg, dev, params, cfg, scorer: Scorer, counts: DtCounts, rng, parity: list) -> dict:
+    """Step 1: a prefill pod and a decode pod behind the port's
+    ``DisaggCoordinator`` (``TwoHopPlanner`` over the scorer's index), and a
+    mixed pod serving the same requests."""
+    from llm_d_kv_cache_manager_tpu_torch.kvcache.disagg import DisaggConfig, DisaggCoordinator
+
+    server = pkg["server"]
+    endpoint = f"tcp://127.0.0.1:{free_local_port()}"
+    pods = {
+        "pod-p": FleetPod(pkg, dev, params, cfg, scorer, "pod-p", 1024, None,
+                          pod_role="prefill", transfer_endpoint=endpoint),
+        "pod-d": FleetPod(pkg, dev, params, cfg, scorer, "pod-d", 1024, None,
+                          pod_role="decode", async_pull=True),
+        "pod-m": FleetPod(pkg, dev, params, cfg, scorer, "pod-m", 1024, None),
+    }
+    try:
+        join_fleet({n: p.pod._publisher for n, p in pods.items()}, scorer)
+        # A short request on each pod first: a new pod's first request pays
+        # its engine's first-use costs, which the TTFT split must not carry.
+        for pod in pods.values():
+            pod.pod.submit(rng.integers(0, cfg.vocab_size, 16).tolist(),
+                           server.SamplingParams(max_new_tokens=8)).result(timeout=600)
+        health = scorer.service.fleet_health
+        dt_wait(lambda: health.snapshot().get("prefills_completed", 0) == 1,
+                "the prefill pod's warm-up PrefillComplete never reached the scorer")
+        prefix = rng.integers(0, cfg.vocab_size, DT_PROMPT // 2).tolist()
+        prompts = [prefix + rng.integers(0, cfg.vocab_size, DT_PROMPT // 2).tolist()
+                   for _ in range(4)]
+        indexer = scorer.service.indexer
+        co = DisaggCoordinator(
+            {n: pods[n].pod for n in ("pod-p", "pod-d")}, DisaggConfig(),
+            score_fn=lambda toks, names: indexer.score_tokens(toks, SCORING_MODEL, names),
+        )
+        hops = []
+        run_hop = co._run_hop
+
+        def recorded_hop(pod, fut, deadline):
+            seq = run_hop(pod, fut, deadline)
+            hops.append(seq)
+            return seq
+
+        co._run_hop = recorded_hop
+        free0 = {n: pods[n].engine.block_manager.num_free for n in ("pod-p", "pod-d")}
+        results, decode_seqs = [], []
+        for p in prompts:
+            n_hops = len(hops)
+            r = co.generate(p, server.SamplingParams(max_new_tokens=DT_NEW))
+            if r.mode != "disagg" or r.prefill_pod != "pod-p" or r.decode_pod != "pod-d":
+                fail(f"disagg_tiers: a request was not planned two-hop: {r}")
+            if r.decode_cached_tokens != DT_PROMPT or len(r.tokens) != DT_NEW:
+                fail(f"disagg_tiers: the decode hop hit {r.decode_cached_tokens} of {DT_PROMPT} "
+                     f"imported prompt tokens and served {len(r.tokens)} tokens")
+            results.append(r)
+            decode_seqs.append(hops[n_hops + 1])
+        dt_wait(lambda: health.snapshot().get("prefills_completed", 0) == 1 + len(prompts),
+                f"the scorer saw {health.snapshot().get('prefills_completed', 0) - 1} of the "
+                f"requests' {len(prompts)} PrefillComplete events")
+        for n in free0:
+            bm = pods[n].engine.block_manager
+            dt_wait(lambda bm=bm, n=n: bm.num_free == free0[n],
+                    f"{n}'s pages did not come back to baseline ({free0[n]})")
+        if pods["pod-d"].pod._pull_jobs:
+            fail("disagg_tiers: the decode pod holds import jobs after the traffic")
+        mixed = [pods["pod-m"].pod.submit(p, server.SamplingParams(max_new_tokens=DT_NEW))
+                 .result(timeout=600) for p in prompts]
+        parity.append(dict(step="disaggregation", prompts=prompts,
+                           got=[r.tokens for r in results],
+                           reference=[s.generated_tokens for s in mixed],
+                           frozen_at=[1] * len(prompts), cached=[DT_PROMPT] * len(prompts)))
+        ms = lambda xs: [x * 1e3 for x in xs]  # noqa: E731
+        return {
+            "step": "disaggregation", "requests": len(prompts), "two_hop": len(results),
+            "decode_cached_tokens": [r.decode_cached_tokens for r in results],
+            "prefill_complete_events": health.snapshot()["prefills_completed"] - 1,
+            "ttft_split_ms": {
+                "prefill_hop": ms([r.ttft_s for r in results]),
+                "handoff": ms([r.handoff_s for r in results]),
+                "decode_first_token": ms([s.first_token_time - s.prefill_start_time
+                                          for s in decode_seqs]),
+            },
+            "decode_itl_ms": ms([s.mean_itl for s in decode_seqs]),
+            "mixed_ttft_ms": ms([s.ttft for s in mixed]),
+            "mixed_itl_ms": ms([s.mean_itl for s in mixed]),
+            "coordinator": co.stats(),
+        }
+    finally:
+        for p in pods.values():
+            p.close()
+            counts.add(p.engine)
+
+
+def dt_remote(pkg, dev, params, cfg, scorer: Scorer, counts: DtCounts, rng) -> dict:
+    """Step 2: pod-r (the remote tier, 384 pages) demotes into pod-s
+    (``POD_ROLE=kvstore``, a store of ``DT_STORE_PAGES``); round 1 comes
+    back through ``X-Pull-Source``."""
+    server, kvblock = pkg["server"], pkg["kvblock"]
+    store_ep = f"tcp://127.0.0.1:{free_local_port()}"
+    pod_s = FleetPod(pkg, dev, params, cfg, scorer, "pod-s", 64, None,
+                     engine_knobs=dict(remote_tier=True, remote_store_pages=DT_STORE_PAGES),
+                     pod_role="kvstore", remote_tier=True, remote_store_pages=DT_STORE_PAGES,
+                     transfer_endpoint=store_ep)
+    pod_r = FleetPod(pkg, dev, params, cfg, scorer, "pod-r", 384, None,
+                     engine_knobs=dict(remote_tier=True), remote_tier=True,
+                     remote_peers=store_ep, async_pull=True)
+    try:
+        join_fleet({"pod-s": pod_s.pod._publisher, "pod-r": pod_r.pod._publisher}, scorer)
+        eng, store = pod_r.engine, pod_s.engine.remote_store
+        rounds = [[rng.integers(0, cfg.vocab_size, DT_PROMPT).tolist() for _ in range(4)]
+                  for _ in range(3)]
+        n_pages = DT_PROMPT // 16
+        tokens = [[s.generated_tokens for s in dt_round(pod_r, server, rounds[0], DT_ROUND_NEW)]]
+        before = pod_r.pod._controller_read(lambda: chain_pages(eng, rounds[0], n_pages))
+        for prompts in rounds[1:]:
+            tokens.append([s.generated_tokens for s in dt_round(pod_r, server, prompts,
+                                                                DT_ROUND_NEW)])
+        demoter = pod_r.pod
+        dt_wait(lambda: not demoter._demote_queue and demoter.demote_pushed_blocks
+                + demoter.demote_failed_blocks + demoter.demote_dropped
+                == eng.remote_stats["demoted_blocks"], "the pusher did not drain its queue")
+        demoted = eng.remote_stats["demoted_blocks"]
+        if demoter.demote_failed_blocks or demoter.demote_dropped or len(store) != demoted:
+            fail(f"disagg_tiers: {demoted} blocks demoted, {demoter.demote_pushed_blocks} pushed, "
+                 f"{demoter.demote_failed_blocks} failed, {demoter.demote_dropped} dropped, "
+                 f"{len(store)} in the store")
+        db = eng.block_manager.token_db
+        round1 = {h for p in rounds[0] for h in db.prefix_hashes(p)}
+        if not round1 <= set(store.hashes()):
+            fail(f"disagg_tiers: {len(round1 - set(store.hashes()))} of round 1's blocks are not "
+                 "in the kvstore pod's store")
+        health = scorer.service.fleet_health
+        dt_wait(lambda: index_view(scorer, kvblock, "pod-s", rounds[0]) == round1,
+                "the scorer does not list pod-s as the holder of round 1's blocks")
+        dt_wait(lambda: health.headroom_of("pod-s") == DT_STORE_PAGES - demoted,
+                f"pod-s's heartbeat headroom {health.headroom_of('pod-s')} is not "
+                f"{DT_STORE_PAGES - demoted}")
+        # Round 1 again, each request pulling its prefix from pod-s: the
+        # pulled pages are round 1's bytes, and the tokens those of a warm
+        # repeat on one engine.
+        pulled, unequal, ttft = [], 0, []
+        for i, p in enumerate(rounds[0]):
+            status, _, body = pod_r.complete(p, DT_ROUND_NEW, {"X-Pull-Source": store_ep})
+            if status != 200:
+                fail(f"disagg_tiers: a pulled request answered {status}: {body}")
+            pulled.append(body["choices"][0]["token_ids"])
+            now = pod_r.pod._controller_read(lambda p=p: chain_pages(eng, [p], n_pages))
+            was = [t[:, i * n_pages:(i + 1) * n_pages] for t in before]
+            unequal += sum(int((a != b).flatten(2).any(-1).any(0).sum()) for a, b in zip(now, was))
+        if unequal:
+            fail(f"disagg_tiers: {unequal} pulled pages differ from the pages gathered before "
+                 "the eviction")
+        cold, warm = dt_reference(pkg, dev, params, cfg, counts,
+                                  [(rounds[0], DT_ROUND_NEW), (rounds[0], DT_ROUND_NEW)])
+        if tokens[0] != cold or pulled != warm:
+            fail("disagg_tiers: the remote tier's tokens differ from one engine's cold and warm "
+                 f"runs: {tokens[0]} / {cold}, pulled {pulled} / warm {warm}")
+        batches = demoter.demote_push_batches
+        return {
+            "step": "remote_tier", "demoted_blocks_rounds": demoted,
+            "demoted_blocks_with_pull_back": eng.remote_stats["demoted_blocks"],
+            "demoted_mib": demoted * eng.kv_block_bytes / 2**20,
+            "pushed_blocks": demoter.demote_pushed_blocks, "push_batches": batches,
+            "push_ms_per_batch": demoter.demote_push_s / batches * 1e3 if batches else None,
+            "demote_s": eng.step_stats["demote_s"], "store_blocks": len(store),
+            "store_headroom": health.headroom_of("pod-s"),
+            "pulled_requests": len(pulled), "pulled_pages_unequal": unequal,
+            "pulls": demoter.async_pulls, "pull_fallbacks": demoter.async_pull_fallbacks,
+        }
+    finally:
+        for p in (pod_r, pod_s):
+            p.close()
+            counts.add(p.engine)
+
+
+def dt_integrity(pkg, dev, params, cfg, scorer: Scorer, counts: DtCounts, rng) -> dict:
+    """Step 3: pod-i (``KV_INTEGRITY``, 384 device pages over 1024 host
+    pages, a scrub every 0.25 s) and its twin without digests serve two
+    clean spill/restore rounds; then one byte of one host slot flips."""
+    server, kvblock = pkg["server"], pkg["kvblock"]
+    tier = dict(host_pages=1024, host_tier_policy="always")
+    pod_i = FleetPod(pkg, dev, params, cfg, scorer, "pod-i", 384, None,
+                     engine_knobs=dict(tier, kv_integrity=True), kv_integrity=True,
+                     integrity_scrub_interval_s=0.25, integrity_scrub_pages=128)
+    pod_o = FleetPod(pkg, dev, params, cfg, scorer, "pod-o", 384, None, engine_knobs=tier)
+    try:
+        join_fleet({"pod-i": pod_i.pod._publisher, "pod-o": pod_o.pod._publisher}, scorer)
+        a, b = ([rng.integers(0, cfg.vocab_size, DT_PROMPT).tolist() for _ in range(4)]
+                for _ in range(2))
+        out = {"step": "integrity"}
+        tokens = {}
+        for pod in (pod_i, pod_o):
+            tokens[pod.name] = [[s.generated_tokens for s in
+                                 dt_round(pod, server, prompts, DT_ROUND_NEW)]
+                                for prompts in (a, b, a, b)]
+        if tokens["pod-i"] != tokens["pod-o"]:
+            fail("disagg_tiers: digests changed the tokens of the spill/restore rounds")
+        eng, integrity = pod_i.engine, pod_i.engine.integrity
+        clean = pod_i.pod._controller_read(lambda: (eng._wait_host_copies(), integrity.snapshot())[1])
+        restored = eng.block_manager.host_stats["restored"]
+        d2h = eng.host_copy_stats["d2h_pages"]
+        # Every slot a copy filled has its digest, taken once the copy landed
+        # (a digest of the slot's old bytes would read corrupt at its
+        # restore); a restore of a block whose spill had not flushed yet reads
+        # the device page and checks unverified, as in the JAX engine.
+        if clean["checks_corrupt"] or clean["quarantined"] or clean["recorded"] != d2h \
+                or not clean["checks_ok"] or restored == 0:
+            fail(f"disagg_tiers: the clean rounds' checks {clean} over {restored} restores and "
+                 f"{d2h} slot copies")
+        for pod in (pod_i, pod_o):
+            st = pod.engine.host_copy_stats
+            out[f"flush_host_ms_{'digests_on' if pod is pod_i else 'digests_off'}"] = {
+                "flushes": st["flushes"], "total": st["flush_host_s"] * 1e3,
+                "per_flush": st["flush_host_s"] / st["flushes"] * 1e3, "d2h_pages": st["d2h_pages"]}
+
+        def digest_and_scrub():
+            eng._wait_host_copies()
+            slots = list(eng.block_manager._host_info)[:64]
+            t = time.perf_counter()
+            for slot in slots:
+                eng._slot_digest(slot)
+            digest_s = (time.perf_counter() - t) / len(slots)
+            t = time.perf_counter()
+            n = eng.scrub_host_pages(512)
+            return digest_s, n, time.perf_counter() - t
+
+        digest_s, scrubbed, scrub_s = pod_i.pod._controller_read(digest_and_scrub)
+        page_mib = eng.kv_block_bytes / 2**20
+        out.update({"clean_checks": clean, "restored_pages": restored, "slot_copies": d2h,
+                    "digest_ms_per_page": digest_s * 1e3, "page_mib": page_mib,
+                    "scrub_pages": scrubbed, "scrub_pages_per_s": scrubbed / scrub_s})
+        h0 = eng.block_manager.token_db.prefix_hashes(a[0])[0]
+
+        def flip() -> bool:
+            eng._flush_page_moves()
+            eng._wait_host_copies()
+            slot = eng.block_manager._host_cached.get(h0)
+            if slot is None:
+                return False
+            eng._host_k[slot].reshape(-1).view(torch.uint8)[0] ^= 0xFF
+            return True
+
+        if not pod_i.pod._controller_read(flip):
+            fail("disagg_tiers: the first block of the drill's prompt is not in the host tier")
+        out["scrub_detect_s"] = dt_wait(lambda: integrity.stats["quarantined"] >= 1,
+                                        "the scrub never quarantined the flipped slot")
+        health = scorer.service.fleet_health
+        dt_wait(lambda: health.bad_blocks_reported >= 1, "no BadBlock reached the scorer")
+        dt_wait(lambda: h0 not in index_view(scorer, kvblock, "pod-i", [a[0]]),
+                "the scorer still lists pod-i for the quarantined block")
+        again = dt_round(pod_i, server, [a[0]], DT_ROUND_NEW)[0]
+        after = integrity.snapshot()
+        if after["quarantined"] != 1 or after["checks_corrupt"] != 1 \
+                or health.bad_blocks_reported != 1:
+            fail(f"disagg_tiers: the flip gave {after['quarantined']} quarantines, "
+                 f"{after['checks_corrupt']} corrupt checks and {health.bad_blocks_reported} "
+                 "BadBlock hashes, not one each")
+        if again.generated_tokens != tokens["pod-i"][0][0]:
+            fail(f"disagg_tiers: the recomputed request's tokens {again.generated_tokens} differ "
+                 f"from the clean run's {tokens['pod-i'][0][0]}")
+        out.update({"after_flip": after, "bad_block_hashes": health.bad_blocks_reported,
+                    "recomputed_prefill_tokens": DT_PROMPT - again.num_cached_prompt})
+        return out
+    finally:
+        for p in (pod_i, pod_o):
+            p.close()
+            counts.add(p.engine)
+
+
+def dt_qos(pkg, dev, params, cfg, scorer: Scorer, counts: DtCounts, rng, parity: list) -> dict:
+    """Step 4: ``TENANT_QOS`` on a pool that eight 1024-token batch decodes
+    fill; two premium requests arrive while they decode, then a ninth
+    batch request over batch's rate budget."""
+    server = pkg["server"]
+    pod_q = FleetPod(pkg, dev, params, cfg, scorer, "pod-q", DT_QOS_PAGES, None, tenant_qos=DT_QOS)
+    eng = pod_q.engine
+    per_step, folds = [], {}
+    step, run_prefill = eng.step, eng._run_prefill
+
+    def counted_step():
+        n = eng.lifecycle_stats.get("priority_preempted", 0)
+        done = step()
+        per_step.append(eng.lifecycle_stats.get("priority_preempted", 0) - n)
+        return done
+
+    def noted_prefill(seqs, chunks=None):
+        # A re-prefill of a preempted request: where its tokens folded, and
+        # the prompt tokens its pages still held.
+        for s in seqs:
+            if s.num_generated and s.request_id not in folds:
+                folds[s.request_id] = (s.num_generated, s.num_prefilled)
+        return run_prefill(seqs, chunks)
+
+    eng.step, eng._run_prefill = counted_step, noted_prefill
+    try:
+        join_fleet({"pod-q": pod_q.pod._publisher}, scorer)
+        batch = [rng.integers(0, cfg.vocab_size, DT_PROMPT).tolist() for _ in range(8)]
+        premium = [rng.integers(0, cfg.vocab_size, DT_PROMPT).tolist() for _ in range(2)]
+        sp = server.SamplingParams
+        bfuts = [pod_q.pod.submit(p, sp(max_new_tokens=DT_BATCH_NEW), tenant="batch",
+                                  request_id=f"batch-{i}") for i, p in enumerate(batch)]
+        status, hdrs, body = pod_q.complete(batch[0], DT_BATCH_NEW, {"X-Tenant": "batch"})
+        if status != 429 or int(hdrs.get("Retry-After", "0")) < 1 or "'batch'" not in body["error"]:
+            fail(f"disagg_tiers: the over-budget request answered {status} {hdrs} {body}")
+        dt_wait(lambda: len(live_seqs(eng, {f"batch-{i}" for i in range(8)})) == 8 and all(
+            s.num_generated >= 8 for s in live_seqs(eng, {f"batch-{i}" for i in range(8)})),
+            "the eight batch requests never decoded together")
+        pfuts = [pod_q.pod.submit(p, sp(max_new_tokens=DT_PREMIUM_NEW), tenant="premium",
+                                  request_id=f"premium-{i}") for i, p in enumerate(premium)]
+        bseqs = [f.result(timeout=600) for f in bfuts]
+        pseqs = [f.result(timeout=600) for f in pfuts]
+        for s in bseqs + pseqs:
+            want = DT_PREMIUM_NEW if s.request_id.startswith("premium") else DT_BATCH_NEW
+            if s.error or s.finish_reason is not None or len(s.generated_tokens) != want:
+                fail(f"disagg_tiers: {s.request_id} finished {s.finish_reason!r} with "
+                     f"{len(s.generated_tokens)} tokens, error={s.error}")
+        preempted = eng.lifecycle_stats.get("priority_preempted", 0)
+        if preempted < 1 or max(per_step) > 1:
+            fail(f"disagg_tiers: {preempted} priority preemptions, at most {max(per_step)} a step")
+        ref_batch, ref_premium = dt_reference(pkg, dev, params, cfg, counts,
+                                              [(batch, DT_BATCH_NEW), (premium, DT_PREMIUM_NEW)])
+        seqs, refs = bseqs + pseqs, ref_batch + ref_premium
+        for s, ref in zip(seqs, refs):
+            if s.request_id not in folds and s.generated_tokens != ref:
+                fail(f"disagg_tiers: {s.request_id}, never preempted, differs from the reference")
+        victims = [i for i, s in enumerate(seqs) if s.request_id in folds]
+        parity.append(dict(step="tenant_qos", prompts=[(batch + premium)[i] for i in victims],
+                           got=[seqs[i].generated_tokens for i in victims],
+                           reference=[refs[i] for i in victims],
+                           frozen_at=[folds[seqs[i].request_id][0] for i in victims],
+                           cached=[folds[seqs[i].request_id][1] for i in victims]))
+        return {
+            "step": "tenant_qos", "pool_pages": DT_QOS_PAGES,
+            "priority_preempted": preempted, "max_priority_preemptions_a_step": max(per_step),
+            "preempted_requests": sorted(folds), "qos": pod_q.pod.qos.snapshot()["tenants"],
+            "over_budget": {"status": status, "retry_after": hdrs.get("Retry-After")},
+            "ttft_ms_median": {"premium": float(np.median([s.ttft * 1e3 for s in pseqs])),
+                               "batch": float(np.median([s.ttft * 1e3 for s in bseqs]))},
+        }
+    finally:
+        del eng.step, eng._run_prefill
+        pod_q.close()
+        counts.add(eng)
+
+
+def disagg_tiers(pkg, ops, dev, card: str, params, cfg) -> tuple[list, dict]:
+    """The pod's knob-gated fleet glue at full width and depth on the 8B
+    path's parameters: pods of 8 lanes with pipelined graph bursts of 4,
+    HTTP, ZMQ and the transfer plane on loopback, publishing to the port's
+    ``ScoringService`` in process. Four steps, one line each:
+    disaggregation (``POD_ROLE`` prefill and decode behind the
+    ``DisaggCoordinator``), the remote tier (``REMOTE_TIER`` into a
+    ``POD_ROLE=kvstore`` pod), integrity (``KV_INTEGRITY`` over a host tier)
+    and tenant QoS (``TENANT_QOS``). Exact launch counts over every engine,
+    K1 and K2 among them; greedy tokens against a mixed engine's, where a
+    kernel change (K2 in place of K1) moves the logits by the near-tie rule
+    of ``migration_parity``."""
+    from llm_d_kv_cache_manager_tpu_torch.server import api
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 6)
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    counts, parity, steps, seconds = DtCounts(), [], [], {}
+    scorer = Scorer(api, True, 0, pod_ttl_s=1e9)
+    try:
+        for name, run in (("disaggregation", lambda: dt_disagg(pkg, dev, params, cfg, scorer,
+                                                               counts, rng, parity)),
+                          ("remote_tier", lambda: dt_remote(pkg, dev, params, cfg, scorer,
+                                                            counts, rng)),
+                          ("integrity", lambda: dt_integrity(pkg, dev, params, cfg, scorer,
+                                                             counts, rng)),
+                          ("tenant_qos", lambda: dt_qos(pkg, dev, params, cfg, scorer, counts,
+                                                        rng, parity))):
+            t = time.perf_counter()
+            steps.append(dict(run(), phase="disagg_tiers", card=card,
+                              host_times="TTFTs, gaps and copy times are host wall times"))
+            seconds[name] = steps[-1]["seconds"] = time.perf_counter() - t
+            free_cuda()
+    finally:
+        scorer.close()
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = expected_launches(cfg, None, None, counts.prefill, counts.decode)
+    if launches != expected:
+        fail(f"disagg_tiers: kernel launches {launches} != expected {expected} over "
+             f"{counts.engines} engines")
+    if not launches["paged_decode"] or not launches["flash_prefill"]:
+        fail(f"disagg_tiers: K1 or K2 was not launched: {launches}")
+    # The near-tie rule (its scratch computations launch kernels of their
+    # own, after the count above).
+    probe = types.SimpleNamespace(params=params, config=types.SimpleNamespace(kv_quant_hbm=None))
+    for job, step in zip(parity, [s for s in steps if s["step"] in ("disaggregation",
+                                                                    "tenant_qos")]):
+        diffs = migration_parity(pkg, probe, cfg, job["prompts"], job["got"], job["reference"],
+                                 job["frozen_at"], job["cached"], 16, dev, phase="disagg_tiers")
+        step["against_mixed_engine"] = {
+            "equal_requests": f"{len(job['got']) - len(diffs)}/{len(job['got'])}",
+            "differences": diffs,
+            "rule": "equal, or the first difference follows the kernel change (the handoff, or "
+                    "a preemption's fold) with a top-2 gap within twice the measured logit move"}
+    steps[-1].update(launches=launches, engines=counts.engines, phase_seconds=seconds,
+                     total_seconds=time.perf_counter() - t_phase)
+    return steps, launches
 
 
 def division_checks(llama, eng, cfg, prompt, ps, dev) -> dict:

@@ -8,12 +8,15 @@ Framework-free copies of the JAX package's modules of the same names:
 - ``service`` / ``client``: the ZMQ ROUTER export service a pod binds and
   the DEALER client (with its circuit breaker) peers fetch through;
 - ``cost_model``: the measured bytes/s-vs-tokens/s accounting behind the
-  router's route-to-warm / pull-then-compute / cold-recompute decision.
+  router's route-to-warm / pull-then-compute / cold-recompute decision;
+- ``remote_store``: the remote tier's holder side (``REMOTE_TIER``): demoted
+  blocks kept wire-ready, LRU-bounded, and published to the index under the
+  holder's identity with ``medium="remote"``.
 
 The engine's export and import endpoints live in ``server/engine.py``;
 ``server/serve.py`` binds the service (``TRANSFER_ENDPOINT``) and pulls
-(``pull_prefix``, ``ASYNC_PULL``). The remote tier's holder side
-(``remote_store``) is not ported.
+(``pull_prefix``, ``ASYNC_PULL``) and pushes demoted blocks to a peer's
+store (``REMOTE_TIER``).
 """
 
 from .client import (
@@ -40,6 +43,7 @@ from .protocol import (
     encode_request,
     encode_response,
 )
+from .remote_store import RemoteBlockStore, RemoteStoreConfig
 from .service import KVTransferService, TransferServiceConfig
 
 __all__ = [
@@ -48,6 +52,8 @@ __all__ = [
     "KVTransferClient",
     "KVTransferService",
     "MigrationPayload",
+    "RemoteBlockStore",
+    "RemoteStoreConfig",
     "TransferClientConfig",
     "TransferClientPool",
     "TransferCostModel",

@@ -21,10 +21,14 @@ recompute-vs-restore cost model; see "Host-DRAM tier" below), and
 cross-pod KV transfer (``kv_block_bytes``, ``export_kv_blocks``,
 ``import_kv_blocks``; see "KV transfer" below), and the step telemetry
 behind the pod's ``OBS_METRICS`` (``obs_step_timing``, ``step_stats``,
-host clocks as in the JAX engine). The other knob-gated
-features of the JAX engine — the remote tier and integrity digests,
-speculative decoding, TP/SP — are not ported yet, and their config fields
-do not exist here.
+host clocks as in the JAX engine), and the fleet's knob-gated tiers: the
+remote tier (``remote_tier``, ``remote_store_pages``: last-copy evictions
+demote to a peer's store, see "Remote tier" below), KV-block integrity
+(``kv_integrity``: write-time digests verified at every tier transition,
+see "Integrity" below) and the tenant classes of ``TENANT_QOS``
+(``add_request``'s ``tenant``/``priority``/``qos_weight``, priority
+preemption). Speculative decoding is not ported yet (and TP/SP are for more
+than one GPU); their config fields do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -60,9 +64,7 @@ Every copy that reads or writes a slot runs on the one copy stream, and a
 flush enqueues its reads of slots before its writes, so a restore reads a
 slot as it was when the restore was queued (the JAX engine's snapshot at
 queue time) without copying it then. A host read of a slot waits on the
-last flush's event (``_wait_host_copies``). The JAX engine's demotion and
-integrity branches of the flush (``_pending_demotions``, ``integrity``) are
-the remote tier's and are not ported.
+last flush's event (``_wait_host_copies``).
 
 KV transfer. ``export_kv_blocks`` serves a peer's prefix fetch: it flushes
 the queued moves, walks the chain, gathers its device pages once on the
@@ -79,8 +81,29 @@ int8 pools quantize full-width pages on the device, full-width pools
 dequantize codes there (``code * scale`` in float32, the JAX engine's
 host arithmetic). Page bytes cross the wire in the JAX package's layout
 and dtype names (bf16 through its ``int16`` view: numpy has no bfloat16
-here). The remote-store and integrity branches of both (``remote_store``,
-``integrity``) belong to the remote tier and are not ported.
+here). With the remote tier on, an export continues from the remote
+store, and an import may recycle evictable pages.
+
+Remote tier. The block manager calls ``_queue_demotion`` when an eviction
+destroys the last local copy of a block. A device page joins the next
+flush's gather, before any restore of that flush writes a page; a host slot
+is copied at once (after ``_wait_host_copies``), since the block manager
+reuses it. The flush turns the device rows into the wire's form on the
+device, copies them into pinned staging on the copy stream and waits
+(``step_stats["demote_s"]``), then hands the ``BlockPayload``s to
+``on_demotion``. ``accept_remote_blocks`` commits a peer's push into the
+remote store, whose blocks the index lists under this pod with
+``medium="remote"``.
+
+Integrity. Digests are taken over the stored bytes, bf16 through their
+``int16`` view, so a page digests as the JAX engine's does. The flush only
+enqueues its copies into the host slots, so a slot's write-time digest is
+recorded once the copy has landed (``_pending_digests``, at the next
+harvest of passed spans or host wait); every host read of a slot waits for
+the copies first. A restore, prefetch, scrub or export that finds a slot
+differing from its record quarantines it and publishes ``BadBlock``; the
+chain breaks there and the suffix recomputes. Imports check the digest a
+payload carries.
 """
 
 from __future__ import annotations
@@ -278,6 +301,24 @@ class EngineConfig:
     #: start then, on the copy stream) instead of inside ``allocate``. Off
     #: by default, as in the JAX package.
     host_prefetch: bool = False
+    #: remote tier (``REMOTE_TIER``): an eviction that would destroy the
+    #: last local copy of a cached block builds a wire-ready demotion
+    #: payload (int8 codes and scales under ``kv_quant``) and hands it to
+    #: ``on_demotion``, the pod's pusher; imports may recycle evictable
+    #: pages (their victims demote). Off by default: plain eviction.
+    remote_tier: bool = False
+    #: remote-store capacity in pages: how many demoted blocks this engine
+    #: holds for peers (0 = none). Read only with ``remote_tier`` on.
+    remote_store_pages: int = 0
+    #: KV-block content integrity (``KV_INTEGRITY``): write-time digests of
+    #: the stored bytes of every host spill, demotion and export, verified at
+    #: every tier transition; a failed check quarantines the copy, cuts the
+    #: chain at it (the suffix recomputes) and publishes ``BadBlock``. Off by
+    #: default.
+    kv_integrity: bool = False
+    #: digest side-table capacity in entries (LRU); read only with
+    #: ``kv_integrity`` on
+    kv_integrity_table_cap: int = 65536
     seed: int = 0
 
 
@@ -405,6 +446,7 @@ class Engine:
             "export_gather_s": 0.0, "export_d2h_s": 0.0, "export_encode_s": 0.0,
             "import_pages": 0, "import_bytes": 0, "import_pack_s": 0.0, "import_h2d_s": 0.0,
         }
+        self._init_fleet_tiers()
         #: decode dispatches (a mixed step makes one prefill and one decode
         #: dispatch, so engine steps do not count them) and the model steps
         #: they ran (``decode_steps_per_iter`` a dispatch)
@@ -439,8 +481,8 @@ class Engine:
         #: (dispatch + sampling), decode (dispatch + commit), sample (the
         #: blocking fetch of sampled ids, a slice of prefill/decode), gather
         #: (page moves between tiers, enqueued on the streams), demote (the
-        #: remote tier's, not ported: stays 0), publish (finish detection +
-        #: KV-event flush). Host clocks on an asynchronous device: a graph
+        #: remote tier's demotion payloads, their copy back included), publish
+        #: (finish detection + KV-event flush). Host clocks on an asynchronous device: a graph
         #: replay's decode seconds are its launch, and the wait for the
         #: device lands in ``sample_s`` where the sampled ids are read.
         #: Off by default: ``obs_step_timing=False`` reads no clock.
@@ -532,6 +574,62 @@ class Engine:
         )
         if auto:
             self._probe_link()
+
+    def _init_fleet_tiers(self) -> None:
+        """The integrity plane (``kv_integrity``) and the remote tier
+        (``remote_tier``), attached as the JAX engine attaches them; with
+        both knobs off nothing here changes a path."""
+        config, cfg, ps = self.config, self.model_cfg, self.page_size
+        #: the digest side table and quarantine ledger (None = knob off)
+        self.integrity = None
+        if config.kv_integrity:
+            from ..kvcache.integrity import BlockIntegrity
+
+            self.integrity = BlockIntegrity(table_cap=config.kv_integrity_table_cap)
+            self.block_manager.attach_integrity(self.integrity, self._verify_host_slot)
+        #: write-time digests whose slot copies may still be landing:
+        #: (slot, block hash), recorded once the copies have passed
+        self._pending_digests: list = []
+        #: the demotion payloads' sink, set by the pod's pusher; None drops
+        #: demotions (plain eviction)
+        self.on_demotion: Optional[Callable[[list], None]] = None
+        #: queued (info, source) demotions, built at the next flush
+        self._pending_demotions: list = []
+        self.remote_stats = {"demoted_blocks": 0, "demote_batches": 0, "accepted_blocks": 0}
+        self.remote_store = None
+        if config.remote_tier and config.remote_store_pages > 0:
+            from ..kvcache.transfer.remote_store import RemoteBlockStore, RemoteStoreConfig
+
+            def _store_events(events):
+                # Late-bound: a pod attaches its publisher to the block
+                # manager after an injected engine is built.
+                sink = self.block_manager.on_events
+                if sink is not None:
+                    sink(events)
+
+            shape = (cfg.n_layers, ps, cfg.n_kv_heads, cfg.hd)
+            store_cfg = RemoteStoreConfig(
+                capacity_pages=config.remote_store_pages,
+                page_size=ps,
+                page_shape=shape,
+                dtype=_WIRE_DTYPES[cfg.dtype],
+                scale_bytes=math.prod(quant.kv_scale_shape(shape)) * 4,
+                init_hash=self.block_manager.token_db.init_hash,
+            )
+            try:
+                np.dtype(store_cfg.dtype)
+                sized = store_cfg
+            except TypeError:
+                # numpy knows bfloat16 only through ml_dtypes: the store
+                # sizes its pages from a dtype of the same width and checks
+                # payloads against the wire name.
+                sized = dataclasses.replace(store_cfg, dtype="float16")
+            self.remote_store = RemoteBlockStore(
+                sized, on_events=_store_events, integrity=self.integrity
+            )
+            self.remote_store.config = store_cfg
+        if config.remote_tier:
+            self.block_manager.attach_demoter(self._queue_demotion)
 
     def _probe_link(self) -> None:
         """Measure the device-to-host rate once at start-up, so that the
@@ -665,12 +763,193 @@ class Engine:
                 self.transfer_copy_stats["import_h2d_s"] += seconds
             else:
                 self.host_copy_stats[f"{kind}_s"] += seconds
+        if self._pending_digests and self._host_ready.seconds() is not None:
+            self._record_slot_digests()
+
+    # -- KV-block content integrity (KV_INTEGRITY) --------------------------
+    def _slot_digest(self, slot: int) -> int:
+        """Content digest of one host slot's stored bytes (int8 codes and
+        scales on an int8 tier, the model dtype's bytes otherwise: what a
+        restore reads back and a host-tier export ships). The caller has
+        waited for the copies into the slots."""
+        from ..kvcache.integrity import page_digest
+
+        return page_digest(*(_tensor_bytes(pool[slot]) for pool in self._host_pools()))
+
+    def _record_slot_digests(self) -> None:
+        """Record the write-time digests of the slots the flushes filled,
+        once their copies have landed (a digest taken when the flush only
+        enqueued the copy would hash the slot's old bytes). A slot that no
+        longer holds the block it was written for is skipped: its copy was
+        evicted or restored, and its record dropped, meanwhile."""
+        pending, self._pending_digests = self._pending_digests, []
+        host_info = self.block_manager._host_info
+        for slot, h in pending:
+            info = host_info.get(slot)
+            if info is not None and info.chain_hash == h:
+                self.integrity.record(h, self._slot_digest(slot))
+
+    def _host_slot_digest(self, slot: int) -> int:
+        """``_slot_digest`` once every copy into the slots has landed."""
+        self._wait_host_copies()
+        return self._slot_digest(slot)
+
+    def _verify_host_slot(self, slot: int, h: int, reason: str) -> bool:
+        """The block manager's integrity hook: recompute the digest of
+        ``slot`` and compare it with the write-time record. False only for
+        a corrupt copy, quarantined first; a missing record passes."""
+        from ..kvcache.integrity import CHECK_CORRUPT
+
+        outcome = self.integrity.check(h, self._host_slot_digest(slot), reason)
+        if outcome == CHECK_CORRUPT:
+            self.integrity.quarantine(h, tier="host_dram")
+            return False
+        return True
+
+    def scrub_host_pages(self, max_pages: int) -> int:
+        """One background scrub batch (the pod stages it onto the engine
+        loop): flush the queued page moves, so fresh spills have their
+        digests, then verify a rotating batch of resident host slots; the
+        events of any quarantine flush at once. Returns slots checked."""
+        if self.integrity is None:
+            return 0
+        self._flush_page_moves()
+        n = self.block_manager.scrub_host_tier(max_pages)
+        if n:
+            self.block_manager.flush_events()
+        return n
+
+    def _verify_demote_src(self, info, src) -> bool:
+        """Check a demotion's snapshot before it ships, when the snapshot is
+        still in the stored form (a host slot's codes and scales, or its
+        full-width bytes on a full-width tier); other sources are verified
+        by the receiver against the payload's digest. A corrupt snapshot is
+        quarantined here and revoked fleet-wide with ``BadBlock``."""
+        from ..kvcache.integrity import CHECK_CORRUPT, page_digest
+        from ..kvcache.kvevents.events import BadBlock
+
+        if src[0] == "qdata" or (src[0] == "data" and not self._host_int8):
+            d = page_digest(*(_tensor_bytes(t) for t in src[1:]))
+        else:
+            return True
+        h = info.chain_hash
+        if self.integrity.check(h, d, "export") != CHECK_CORRUPT:
+            return True
+        self.integrity.quarantine(h, tier="host_dram")
+        self.block_manager._record_lifecycle(
+            h, "none", "quarantine", tenant=getattr(info, "tenant", "")
+        )
+        self.block_manager._emit(BadBlock(block_hashes=[h], medium="host_dram"))
+        log.warning("demotion payload failed digest check; quarantined", block=h)
+        return False
+
+    # -- remote-tier demotion (REMOTE_TIER) ---------------------------------
+    def _queue_demotion(self, info, tier: str, idx: int) -> None:
+        """The block manager's demotion hook: the last local copy of
+        ``info.chain_hash`` is being destroyed, so queue its bytes for the
+        next flush to build a payload from. A device page is read by the
+        flush's gather (its contents hold until the next dispatch); a host
+        slot is reused at once, so it is copied now, after the copies into
+        the slots have landed. No sink: plain eviction, no work."""
+        if self.on_demotion is None:
+            return
+        if tier == "tpu_hbm":
+            src = self._restore_by_page.get(idx, ("page", idx))
+        else:
+            src = self._off_by_slot.get(idx)
+            if src is None:
+                self._wait_host_copies()
+                kind = "qdata" if self._host_int8 else "data"
+                src = (kind,) + tuple(pool[idx].clone() for pool in self._host_pools())
+        self._pending_demotions.append((info, src))
+
+    def _build_demotions(self, select) -> None:
+        """Build the queued demotions' wire payloads and hand them to
+        ``on_demotion``. Device-held sources (a page, or a slot a restore
+        staged) come from the flush's rows through ``select``, in the wire's
+        form on the device, then one copy into pinned staging on the copy
+        stream and one wait; host sources are used as they are."""
+        from ..kvcache.integrity import page_digest
+        from ..kvcache.transfer.protocol import BlockPayload
+
+        cfg = self.model_cfg
+        shape = (cfg.n_layers, self.page_size, cfg.n_kv_heads, cfg.hd)
+        device_srcs = [src for _, src in self._pending_demotions if src[0] in ("page", "slot")]
+        host_rows: list = []
+        if device_srcs:
+            host_rows, _, _ = self._copy_rows_to_host(self._to_host_form(select(device_srcs)))
+        payloads = []
+        row = 0
+        for info, src in self._pending_demotions:
+            if src[0] in ("page", "slot"):
+                data = [r[row] for r in host_rows]
+                row += 1
+            else:
+                if self.integrity is not None and not self._verify_demote_src(info, src):
+                    continue
+                data = list(src[1:])
+                if src[0] == "data" and self._host_int8:
+                    (kq, ks), (vq, vs) = (quant.quantize_kv_page(t) for t in data)
+                    data = [kq, vq, ks, vs]
+            extra = {}
+            if len(data) == 4:
+                extra = {"quant": "int8", "k_scale": _tensor_bytes(data[2]),
+                         "v_scale": _tensor_bytes(data[3])}
+            payload = BlockPayload(
+                block_hash=info.chain_hash,
+                parent_block_hash=info.parent_hash,
+                token_ids=list(info.token_ids),
+                block_size=self.page_size,
+                dtype=_WIRE_DTYPES[cfg.dtype],
+                shape=shape,
+                k_data=_tensor_bytes(data[0]),
+                v_data=_tensor_bytes(data[1]),
+                **extra,
+            )
+            if self.integrity is not None:
+                # The digest of the final payload bytes travels with them;
+                # the local record goes with the last local copy.
+                payload.digest = page_digest(
+                    payload.k_data, payload.v_data, payload.k_scale, payload.v_scale
+                )
+                self.integrity.drop(info.chain_hash)
+            payloads.append(payload)
+        self._pending_demotions.clear()
+        self.remote_stats["demoted_blocks"] += len(payloads)
+        self.remote_stats["demote_batches"] += 1
+        sink = self.on_demotion
+        if sink is not None:
+            sink(payloads)
+
+    def accept_remote_blocks(self, source_pod: str, payloads) -> tuple[int, int]:
+        """Commit a peer's demotion push into this engine's remote store (its
+        ``BlockStored(medium="remote")`` events flush at once). Returns
+        ``(accepted, headroom)``. Engine thread only."""
+        if self.remote_store is None:
+            return 0, 0
+        accepted = self.remote_store.accept(payloads, source_pod=source_pod)
+        if accepted:
+            self.remote_stats["accepted_blocks"] += accepted
+        return accepted, self.remote_store.headroom
+
+    @property
+    def remote_headroom(self) -> Optional[int]:
+        """Pages the remote store still accepts (the heartbeat's headroom);
+        None with the tier off, so the heartbeat's bytes stay the legacy
+        ones."""
+        if not self.config.remote_tier:
+            return None
+        # `is not None`: an empty store (the largest headroom) is falsy.
+        return self.remote_store.headroom if self.remote_store is not None else 0
 
     def block_digest(self) -> dict[str, list[int]]:
         """Resync digest across every tier this pod holds: the block
-        manager's (device pages and host slots). The JAX engine's also
-        lists its remote store, which the port does not have."""
-        return self.block_manager.block_digest()
+        manager's (device pages and host slots) and the remote store's, so
+        a resync never wipes the demoted entries this pod holds."""
+        digest = self.block_manager.block_digest()
+        if self.remote_store is not None and len(self.remote_store):
+            digest["remote"] = self.remote_store.hashes()
+        return digest
 
     @staticmethod
     def _ema(prev: Optional[float], sample: float, alpha: float = 0.3) -> float:
@@ -852,7 +1131,7 @@ class Engine:
         ``index_copy_`` with repeated indices has no defined order on CUDA,
         and the last offload into a slot is the content the JAX engine's
         in-order writes leave there."""
-        if not self._pending_offloads and not self._pending_restores:
+        if not (self._pending_offloads or self._pending_restores or self._pending_demotions):
             return
         t_host = time.perf_counter()
         self._harvest_copy_spans()
@@ -861,7 +1140,12 @@ class Engine:
         offloads = dict(self._pending_offloads)  # slot -> source
         restores = dict(self._pending_restores)  # page -> source
         sources = list(offloads.values()) + list(restores.values())
-        pages = list(dict.fromkeys(src[1] for src in sources if src[0] == "page"))
+        # Demotions read their device pages through the same gather; their
+        # host bytes (a slot's snapshot, an import's payload) stay on the host.
+        pages = list(dict.fromkeys(
+            src[1] for src in sources + [src for _, src in self._pending_demotions]
+            if src[0] == "page"
+        ))
         imported = list({key(src): src for src in sources if src[0] in ("data", "qdata")}.values())
         gather = _Span(compute) if offloads else None
         restore_span = _Span(compute) if restores else None
@@ -891,7 +1175,8 @@ class Engine:
             start = sum(len(part[0]) for part in parts)
             row_of.update({key(src): start + i for i, src in enumerate(srcs)})
             parts.append(self._import_to_pool_form(kind, rows))
-        pool_rows = parts[0] if len(parts) == 1 else [torch.cat(c) for c in zip(*parts)]
+        pool_rows = (parts[0] if len(parts) == 1 else [torch.cat(c) for c in zip(*parts)]
+                     if parts else [])
 
         def select(srcs) -> list[torch.Tensor]:
             idx = self._index([row_of[key(src)] for src in srcs])
@@ -907,6 +1192,20 @@ class Engine:
             slots = sorted(offloads)
             rows = self._to_host_form(select([offloads[s] for s in slots]))
             self._copy_to_host(slots, rows, gather)
+            if self.integrity is not None:
+                # Write-time digests, taken once the copies have landed.
+                host_info = self.block_manager._host_info
+                self._pending_digests += [
+                    (slot, host_info[slot].chain_hash) for slot in slots
+                    if slot in host_info and host_info[slot].chain_hash is not None
+                ]
+                self._harvest_copy_spans()
+        demote_s = 0.0
+        if self._pending_demotions:
+            # Remote-tier work, timed apart from the page moves.
+            t_demote = time.perf_counter()
+            self._build_demotions(select)
+            demote_s = time.perf_counter() - t_demote
         self._pending_offloads.clear()
         self._pending_restores.clear()
         self._off_by_slot.clear()
@@ -916,10 +1215,11 @@ class Engine:
         stats = self.host_copy_stats
         stats["flushes"] += 1
         stats["restored"] += len(restores)
-        host_s = time.perf_counter() - t_host
+        host_s = time.perf_counter() - t_host - demote_s
         stats["flush_host_s"] += host_s
         if self.obs_step_timing:
             self.step_stats["gather_s"] += host_s
+            self.step_stats["demote_s"] += demote_s
 
     def _gather_pages(self, pages: list[int]) -> list[torch.Tensor]:
         """Device pages ``pages`` of every pool, slot-major ``[n, L, ...]``."""
@@ -944,11 +1244,23 @@ class Engine:
         one gather on the compute stream (quantized there for an int8 wire
         from full-width pools; int8 pools' scales as ``[n, L, 1, n_kv, 1]``),
         one copy into pinned staging on the copy stream, one wait."""
-        compute, stream = self._compute_stream(), self._copy_stream
+        compute = self._compute_stream()
         stats = self.transfer_copy_stats
         gather = _Span(compute)
         rows = self._to_host_form(self._gather_pages(pages))
         gather.end(compute)
+        staging, d2h, n_bytes = self._copy_rows_to_host(rows)
+        stats["export_gather_s"] += gather.seconds()
+        stats["export_d2h_s"] += d2h.seconds()
+        stats["export_pages"] += len(pages)
+        stats["export_bytes"] += n_bytes
+        return staging
+
+    def _copy_rows_to_host(self, rows: list[torch.Tensor]) -> tuple[list, _Span, int]:
+        """Copy device rows the compute stream made into pinned staging on
+        the copy stream and wait for them: ``(staging, span of the copy,
+        bytes)``."""
+        compute, stream = self._compute_stream(), self._copy_stream
         staging = [torch.empty(r.shape, dtype=r.dtype, pin_memory=stream is not None)
                    for r in rows]
         if stream is not None:
@@ -963,23 +1275,31 @@ class Engine:
             for row in rows:
                 row.record_stream(stream)
         d2h.wait()
-        stats["export_gather_s"] += gather.seconds()
-        stats["export_d2h_s"] += d2h.seconds()
-        stats["export_pages"] += len(pages)
-        stats["export_bytes"] += sum(b.numel() * b.element_size() for b in staging)
-        return staging
+        return staging, d2h, sum(b.numel() * b.element_size() for b in staging)
 
     def export_kv_blocks(self, hashes: list, max_blocks: Optional[int] = None):
         """Serve a peer's prefix fetch: the longest consecutive resident run
         of ``hashes`` as ``BlockPayload``s, from device pages (one gather)
-        and host slots. Engine thread only: it flushes the queued page moves
-        first, so the bytes are committed state."""
+        and host slots, continued from the remote store. Engine thread only:
+        it flushes the queued page moves first, so the bytes are committed
+        state. With ``kv_integrity`` every payload carries its digest, and a
+        host-tier block that fails its record is quarantined and ends the
+        export there."""
+        from ..kvcache.integrity import CHECK_CORRUPT, page_digest
         from ..kvcache.transfer.protocol import BlockPayload
 
         self._flush_page_moves()
         chain = self.block_manager.lookup_chain(hashes, max_blocks)
+        # The remote store serves the rest of the run from its wire-ready
+        # payloads, with the same stop at the first gap.
+        remote_tail: list = []
+        if self.remote_store is not None:
+            cap = len(hashes) if max_blocks is None else min(max_blocks, len(hashes))
+            remote_tail = self.remote_store.serve(hashes[len(chain) : cap], cap - len(chain))
         if not chain:
-            return []
+            if remote_tail:
+                self.transfer_stats["exported_blocks"] += len(remote_tail)
+            return remote_tail
         cfg = self.model_cfg
         shape = (cfg.n_layers, self.page_size, cfg.n_kv_heads, cfg.hd)
         device = [(i, idx) for i, (_, _, tier, idx) in enumerate(chain) if tier == "tpu_hbm"]
@@ -1000,7 +1320,7 @@ class Engine:
                 # dtype and shape stay the logical page's.
                 extra = {"quant": "int8", "k_scale": _tensor_bytes(data[2]),
                          "v_scale": _tensor_bytes(data[3])}
-            blocks.append(BlockPayload(
+            payload = BlockPayload(
                 block_hash=h,
                 parent_block_hash=info.parent_hash,
                 token_ids=list(info.token_ids),
@@ -1010,13 +1330,30 @@ class Engine:
                 k_data=_tensor_bytes(data[0]),
                 v_data=_tensor_bytes(data[1]),
                 **extra,
-            ))
+            )
+            if self.integrity is not None:
+                # A host-tier payload is the slot's stored bytes, so its
+                # digest is checked against the write-time record; a device
+                # page's is stamped. Never ship a corrupt copy: quarantine
+                # it, revoke it and end the export at it.
+                d = page_digest(payload.k_data, payload.v_data, payload.k_scale, payload.v_scale)
+                if tier == "host_dram" and self.integrity.check(h, d, "export") == CHECK_CORRUPT:
+                    self.integrity.quarantine(h, tier="host_dram")
+                    self.block_manager.quarantine_host_block(h)
+                    self.block_manager.flush_events()
+                    remote_tail = []
+                    break
+                payload.digest = d
+            blocks.append(payload)
+        blocks.extend(remote_tail)
         self.transfer_copy_stats["export_encode_s"] += time.perf_counter() - t_encode
         self.transfer_copy_stats["exports"] += 1
         self.transfer_stats["exported_blocks"] += len(blocks)
         return blocks
 
-    def import_kv_blocks(self, blocks, allow_evict: bool = False, source_pod: str = "") -> int:
+    def import_kv_blocks(
+        self, blocks, allow_evict: Optional[bool] = None, source_pod: str = ""
+    ) -> int:
         """Install fetched prefix blocks as committed prefix-cache pages,
         with the JAX engine's checks in its order: geometry and payload
         length, already resident (skipped), parent gap, the chain hash of
@@ -1026,11 +1363,16 @@ class Engine:
         dispatch; ``BlockStored`` events flush at the end. Returns the
         blocks installed. Engine thread only.
 
-        ``allow_evict``: recycle evictable pages to make room (the remote
-        tier's import rule; by default only free pages are used).
-        ``source_pod``: where the bytes came from, named in the log of a
-        rejection."""
+        ``allow_evict``: recycle evictable pages to make room; None follows
+        ``remote_tier`` (whose victims demote, so the trade is lossless),
+        else only free pages are used. ``source_pod``: where the bytes came
+        from, named in the log of a rejection and, with ``kv_integrity``, in
+        the ``BadBlock`` published when a payload fails its carried digest
+        (the import then stops there)."""
         from ..kvcache.kvblock.token_processor import hash_block
+
+        if allow_evict is None:
+            allow_evict = self.config.remote_tier
 
         cfg = self.model_cfg
         ps = self.page_size
@@ -1079,6 +1421,8 @@ class Engine:
                 log.warning("imported block's chain hash does not match its tokens; import "
                             "stopped", source=source_pod or "<unknown>")
                 break
+            if self.integrity is not None and not self._import_digest_ok(blk, source_pod):
+                break
             try:
                 page = bm.install_imported_block(h, parent, blk.token_ids, allow_evict=allow_evict)
             except AllocationError:
@@ -1103,16 +1447,42 @@ class Engine:
             bm.flush_events()
         return installed
 
+    def _import_digest_ok(self, blk, source_pod: str) -> bool:
+        """Check an imported payload against the digest it carries. A
+        mismatch (the bytes rotted on the wire or in the holder's store) is
+        rejected, quarantined here and revoked with a ``BadBlock`` naming
+        ``source_pod``; a payload without a digest passes unverified."""
+        from ..kvcache.integrity import CHECK_CORRUPT, page_digest
+        from ..kvcache.kvevents.events import BadBlock
+
+        h = blk.block_hash
+        computed = page_digest(blk.k_data, blk.v_data, blk.k_scale, blk.v_scale)
+        if self.integrity.check_carried(h, blk.digest, computed, "import") != CHECK_CORRUPT:
+            return True
+        self.transfer_stats["import_rejected"] += 1
+        self.integrity.quarantine(h, tier="wire")
+        self.block_manager._emit(BadBlock(block_hashes=[h], pod=source_pod))
+        self.block_manager.flush_events()
+        log.warning("imported KV payload failed digest check; rejected", block=h,
+                    source=source_pod or "<unknown>")
+        return False
+
     def add_request(
         self,
         prompt_tokens: list[int],
         sampling: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
         deadline: Optional[float] = None,
+        tenant: str = "",
+        priority: int = 0,
+        qos_weight: float = 1.0,
     ) -> Sequence:
         """``deadline``: absolute ``time.monotonic()`` deadline. Expired
         waiting sequences are shed before prefill; running sequences past
-        it finish early with ``finish_reason="deadline"``."""
+        it finish early with ``finish_reason="deadline"``.
+        ``tenant``/``priority``/``qos_weight``: the request's ``TENANT_QOS``
+        class, which the pod resolves from its policy; the defaults (knob
+        off) put every sequence in one class."""
         if len(prompt_tokens) == 0:
             raise ValueError("empty prompt")
         if len(prompt_tokens) >= self.config.max_model_len:
@@ -1130,6 +1500,9 @@ class Engine:
             sampling=sampling or SamplingParams(),
             request_id=request_id,
             deadline=deadline,
+            tenant=tenant,
+            priority=priority,
+            qos_weight=qos_weight,
         )
         if deadline is not None:
             self._deadlines_used = True
@@ -1300,6 +1673,10 @@ class Engine:
                 seq.finish_time = now
                 self.lifecycle_stats["deadline_shed"] += 1
                 self.finished.append(seq)
+        if self.scheduler.qos_enabled:
+            # TENANT_QOS: when the highest class's waiting prefill cannot
+            # allocate, free pages by preempting one lower-class sequence.
+            self._preempt_for_priority()
         if self.config.host_prefetch and self.config.block_manager.host_pages:
             # Ahead of the scheduler: waiting sequences' host-cached
             # prefixes start their copies now, so this step's flush only
@@ -1686,6 +2063,12 @@ class Engine:
         ]
         if not candidates:
             return None
+        if self.scheduler.qos_enabled:
+            # TENANT_QOS: prefer victims of a strictly lower class than
+            # ``seq``, falling back to every candidate so growth never wedges.
+            lower = [c for c in candidates if c.priority > seq.priority]
+            if lower:
+                candidates = lower
         self._harvest_copy_spans()
         if self.config.block_manager.host_pages > 0 and self._prefill_rate is not None:
             return min(candidates, key=self._bring_back_cost_s)
@@ -1716,6 +2099,48 @@ class Engine:
                 self.block_manager.free_sequence(victim)
                 victim.fold_for_preemption()
                 self.scheduler.waiting.appendleft(victim)
+
+    def _preempt_for_priority(self) -> None:
+        """TENANT_QOS priority preemption: when the highest-class waiting
+        sequence cannot allocate its prefill pages, preempt one strictly
+        lower-class sequence (the worst class, most recently admitted
+        first): its pages are freed and it re-queues waiting, never
+        errored. One victim a step. A pipelined burst in flight that holds
+        the victim is committed first, so no page it still reads on the
+        device is freed under it."""
+        sch = self.scheduler
+        sch.qos_reorder_waiting()
+        head = next((s for s in sch.waiting if not s.importing), None)
+        if head is None or self.block_manager.can_allocate(head):
+            return
+        candidates = [
+            cand
+            for cand in list(reversed(sch.running)) + list(reversed(sch.prefilling))
+            if cand.priority > head.priority and not self._should_finish(cand)
+        ]
+        if not candidates:
+            return
+        victim = max(candidates, key=lambda c: c.priority)
+        if self._inflight is not None and any(s is victim for s in self._inflight["active"]):
+            self._drain_inflight()
+            if self._should_finish(victim):
+                return  # the commit finished it: it leaves this step
+        log.warning(
+            "priority preemption",
+            victim=victim.seq_id,
+            victim_tenant=victim.tenant,
+            for_seq=head.seq_id,
+            for_tenant=head.tenant,
+        )
+        sch.on_preempted(victim)
+        self.block_manager.free_sequence(victim)
+        victim.fold_for_preemption()
+        sch.waiting.append(victim)  # the next reorder places it by class
+        # The key appears only once a preemption happened (TENANT_QOS on),
+        # so the knobs-off /stats payload is unchanged.
+        self.lifecycle_stats["priority_preempted"] = (
+            self.lifecycle_stats.get("priority_preempted", 0) + 1
+        )
 
     def _sample(self, logits: torch.Tensor, seqs: list[Sequence]) -> np.ndarray:
         b = logits.shape[0]

@@ -65,11 +65,27 @@ prefill), and the pod's fleet contract:
 Every knob defaults off, and then every response, ``/stats`` key and wire
 byte equals the knobs-off JAX pod's.
 
-Not ported yet: pod roles (``POD_ROLE``), the remote tier
-(``REMOTE_TIER``), tenant QoS (``TENANT_QOS``, so admission has no tenant
-branch and the SLO recorder and MRC have no tenant slices) and KV
-integrity (``KV_INTEGRITY``), with their ``/stats`` blocks, and
-speculative decoding (``SPEC_DECODE``).
+The fleet's knob-gated glue:
+
+- disaggregated roles: ``POD_ROLE`` ``prefill`` clamps every request to its
+  first token and announces the finished chain with a ``PrefillComplete``
+  event, ``decode`` takes the handed-off requests, ``kvstore`` holds demoted
+  blocks and serves no request; the role rides the ``Heartbeat`` and a
+  ``disagg`` block on ``/stats`` (``kvcache.disagg``'s ``DisaggCoordinator``
+  drives the two hops);
+- the remote tier: ``REMOTE_TIER``, ``REMOTE_STORE_PAGES``, ``REMOTE_PEERS``
+  and ``REMOTE_DEMOTE_QUEUE`` (last-copy evictions pushed to the peer with
+  the most headroom by a background pusher; pushes from peers hop onto the
+  engine loop into the remote store; the heartbeat carries the headroom);
+- KV-block integrity: ``KV_INTEGRITY``, ``INTEGRITY_SCRUB_INTERVAL_S``,
+  ``INTEGRITY_SCRUB_PAGES`` and ``INTEGRITY_TABLE_CAP`` (a background scrub
+  of the host slots on the engine loop; the integrity ``/metrics`` families
+  and ``/stats`` block; ``purge_bad_blocks`` for the fleet's revocations);
+- tenant QoS: ``TENANT_QOS`` (the ``X-Tenant`` header, per-tenant admission
+  budgets, priority classes with preemption, weighted shares, cache-share
+  caps, and the tenant slices of the SLO recorder and the MRC).
+
+Not ported yet: speculative decoding (``SPEC_DECODE``).
 
 Run: ``python -m llm_d_kv_cache_manager_tpu_torch.server.serve`` (needs
 aiohttp, and pyzmq for publishing; prometheus_client for ``/metrics``).
@@ -86,13 +102,14 @@ import uuid
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 from ..kvcache.kvevents import (
     Heartbeat,
     IndexSnapshot,
     PodDrained,
+    PrefillComplete,
     RequestAudit,
     ZMQPublisher,
     ZMQPublisherConfig,
@@ -181,9 +198,7 @@ class _ServingMetrics:
 
         Every family the JAX pod registers under these flags is registered
         here, so the exposition lists the same families. The speculative-
-        decoding counters stay at zero, and the tenant and integrity
-        planes are not ported, so the pod leaves those two flags off and
-        their observers are not here."""
+        decoding counters stay at zero."""
         # Measured serving rates (EMAs over request completions), kept
         # OUTSIDE the prometheus guard: admission control derives its
         # Retry-After hint from them, with or without prometheus_client.
@@ -488,6 +503,13 @@ class _ServingMetrics:
                 "integrity scrubber",
                 registry=self.registry,
             )
+            self._integrity_seen = {
+                "checks_ok": 0,
+                "checks_corrupt": 0,
+                "checks_unverified": 0,
+                "quarantined": 0,
+                "scrub_pages": 0,
+            }
 
     def observe_tier_transition(self, frm: str, to: str, reason: str) -> None:
         if self._prom is None or not self._lifecycle:
@@ -508,10 +530,38 @@ class _ServingMetrics:
             min(distance_blocks, lifecycle_mod.COLD_DISTANCE_CLAMP)
         )
 
+    def sync_integrity_stats(self, stats: dict) -> None:
+        """Mirror the ``BlockIntegrity`` monotone counters into Prometheus
+        (delta sync, as ``sync_lifecycle_stats``)."""
+        if self._prom is None or not self._integrity:
+            return
+        for key, outcome in (
+            ("checks_ok", "ok"),
+            ("checks_corrupt", "corrupt"),
+            ("checks_unverified", "unverified"),
+        ):
+            d = stats.get(key, 0) - self._integrity_seen[key]
+            if d > 0:
+                self.integrity_checks.labels(outcome=outcome).inc(d)
+                self._integrity_seen[key] += d
+        for key, counter in (
+            ("quarantined", self.integrity_quarantined),
+            ("scrub_pages", self.integrity_scrub_pages),
+        ):
+            d = stats.get(key, 0) - self._integrity_seen[key]
+            if d > 0:
+                counter.inc(d)
+                self._integrity_seen[key] += d
+
     def set_slo_burn(self, objective: str, window: str, rate: float) -> None:
         if self._prom is None or not self._obs:
             return
         self.slo_burn.labels(objective=objective, window=window).set(rate)
+
+    def set_tenant_slo_burn(self, tenant: str, objective: str, window: str, rate: float) -> None:
+        if self._prom is None or not self._tenant_qos:
+            return
+        self.tenant_slo_burn.labels(tenant=tenant, objective=objective, window=window).set(rate)
 
     def observe_pull(
         self, seconds: float, outcome: str, trace_id: Optional[str] = None
@@ -767,6 +817,29 @@ class PodServerConfig:
     async_pull: bool = False
     #: import worker threads for ASYNC_PULL (concurrent fetches)
     pull_workers: int = 2
+    #: disaggregated serving role (``POD_ROLE``): "mixed" (default) serves
+    #: prefill and decode. "prefill" stops every request at its first token
+    #: (its chain stays exportable) and announces it with a
+    #: ``PrefillComplete`` event; "decode" takes handed-off requests
+    #: (``pull_source``); "kvstore" holds demoted blocks and serves no
+    #: request. The role rides the heartbeat.
+    pod_role: str = "mixed"
+    # -- remote tier (all off by default) -----------------------------------
+    #: ``REMOTE_TIER``: an eviction that would destroy the last local copy of
+    #: a block demotes it over the transfer plane to a peer with headroom
+    #: (or a kvstore pod), imports may recycle evictable pages, heartbeats
+    #: advertise the remote store's headroom, and peers' pushes are
+    #: accepted into this pod's store.
+    remote_tier: bool = False
+    #: remote-store capacity in pages (demoted blocks this pod holds for
+    #: peers); 0 accepts nothing
+    remote_store_pages: int = 0
+    #: comma-separated transfer endpoints of the demotion targets; empty =
+    #: this pod never demotes (it can still accept pushes and serve pulls)
+    remote_peers: str = ""
+    #: bound on payloads parked for the pusher; an overflow drops the oldest
+    #: (plain eviction, counted)
+    remote_demote_queue: int = 1024
     # -- fleet self-healing (all off by default) ----------------------------
     #: seconds between Heartbeat events (liveness beacon + publisher drop
     #: report for the indexer's dead-pod sweep); 0 = no heartbeats.
@@ -865,6 +938,27 @@ class PodServerConfig:
     #: scale-down. Off answers migrations with the tolerant refusal a
     #: service without the knob gives, and ``migrate_out`` refuses locally.
     fleet_controller: bool = False
+    # -- multi-tenant QoS (off by default) ----------------------------------
+    #: ``TENANT_QOS`` policy (the grammar is in ``server/qos.py``):
+    #: ``name:prio=..,weight=..,max_waiting=..,max_queued_tokens=..,rps=..,
+    #: cache_share=..`` entries separated by ";", ``*`` the default tenant.
+    #: Set = requests are sliced by the ``X-Tenant`` header: per-tenant
+    #: admission budgets (429 and ``Retry-After``), priority classes with
+    #: preemption, weighted shares within a class, per-tenant cache caps and
+    #: tenant slices of the SLO burn and the MRC. Unset = no tenant anywhere.
+    tenant_qos: str = ""
+    # -- KV-block integrity (off by default) --------------------------------
+    #: ``KV_INTEGRITY`` (mirrored into the engine's config): write-time
+    #: digests of every host spill, demotion and export, verified at every
+    #: tier transition, quarantine and recompute on a mismatch, and the
+    #: fleet-wide ``BadBlock`` revocation.
+    kv_integrity: bool = False
+    #: seconds between background scrub batches over the resident host
+    #: slots (``INTEGRITY_SCRUB_INTERVAL_S``); 0 = no scrub. A batch runs on
+    #: the engine loop between steps.
+    integrity_scrub_interval_s: float = 0.0
+    #: host slots verified a scrub batch (``INTEGRITY_SCRUB_PAGES``)
+    integrity_scrub_pages: int = 32
     engine: EngineConfig = field(default_factory=EngineConfig)
 
     @classmethod
@@ -887,6 +981,15 @@ class PodServerConfig:
         )
         cfg.async_pull = _env_bool("ASYNC_PULL", "0")
         cfg.pull_workers = int(os.environ.get("PULL_WORKERS", cfg.pull_workers))
+        # Disaggregated serving role (unset/"mixed" = one tier).
+        cfg.pod_role = os.environ.get("POD_ROLE", cfg.pod_role).strip() or "mixed"
+        # Remote tier (unset/0 = off).
+        cfg.remote_tier = _env_bool("REMOTE_TIER", "0")
+        cfg.remote_store_pages = int(os.environ.get("REMOTE_STORE_PAGES", cfg.remote_store_pages))
+        cfg.remote_peers = os.environ.get("REMOTE_PEERS", cfg.remote_peers)
+        cfg.remote_demote_queue = int(
+            os.environ.get("REMOTE_DEMOTE_QUEUE", cfg.remote_demote_queue)
+        )
         # Fleet self-healing (0/unset = off).
         cfg.heartbeat_interval_s = float(
             os.environ.get("HEARTBEAT_INTERVAL_S", cfg.heartbeat_interval_s)
@@ -936,6 +1039,16 @@ class PodServerConfig:
         cfg.obs_flight_burn = float(os.environ.get("OBS_FLIGHT_BURN", cfg.obs_flight_burn))
         # Fleet controller (0/unset = off).
         cfg.fleet_controller = _env_bool("FLEET_CONTROLLER", "0")
+        # Multi-tenant QoS (unset/empty = off).
+        cfg.tenant_qos = os.environ.get("TENANT_QOS", cfg.tenant_qos)
+        # KV-block integrity (0/unset = off).
+        cfg.kv_integrity = _env_bool("KV_INTEGRITY", "0")
+        cfg.integrity_scrub_interval_s = float(
+            os.environ.get("INTEGRITY_SCRUB_INTERVAL_S", cfg.integrity_scrub_interval_s)
+        )
+        cfg.integrity_scrub_pages = int(
+            os.environ.get("INTEGRITY_SCRUB_PAGES", cfg.integrity_scrub_pages)
+        )
         eng = cfg.engine
         eng.block_manager = BlockManagerConfig(
             total_pages=int(os.environ.get("TOTAL_PAGES", 1024)),
@@ -971,6 +1084,14 @@ class PodServerConfig:
         # Chunked prefill: a per-step prompt-token budget; 0 or unset = off.
         cpt = int(os.environ.get("CHUNKED_PREFILL_TOKENS", 0))
         eng.scheduler.chunked_prefill_tokens = cpt if cpt > 0 else None
+        # The remote tier and the integrity plane reach the engine through
+        # its own config.
+        eng.remote_tier = cfg.remote_tier
+        eng.remote_store_pages = cfg.remote_store_pages if cfg.remote_tier else 0
+        eng.kv_integrity = cfg.kv_integrity
+        eng.kv_integrity_table_cap = int(
+            os.environ.get("INTEGRITY_TABLE_CAP", eng.kv_integrity_table_cap)
+        )
         return cfg
 
 
@@ -997,6 +1118,18 @@ class PodServer:
         and every engine step re-seeds its prefill tokens/s from the
         engine's own rate."""
         self.config = config or PodServerConfig()
+        if self.config.pod_role not in ("mixed", "prefill", "decode", "kvstore"):
+            raise ValueError(
+                f"POD_ROLE must be mixed/prefill/decode/kvstore, got "
+                f"{self.config.pod_role!r}"
+            )
+        if self.config.remote_tier and engine is None:
+            # The knobs reach the engine's config before it is built (its
+            # constructor attaches them); an injected engine brings its own.
+            self.config.engine.remote_tier = True
+            self.config.engine.remote_store_pages = self.config.remote_store_pages
+        if self.config.kv_integrity and engine is None:
+            self.config.engine.kv_integrity = True
         self._tokenizer = tokenizer
         self._publisher = publisher
         self.transfer_cost_model = transfer_cost_model
@@ -1033,7 +1166,7 @@ class PodServer:
         self._mu = threading.Lock()
         self._work = threading.Condition(self._mu)
         #: staged requests: (tokens, sampling, deadline, rid, future, span,
-        #: route_action, pull)
+        #: route_action, pull, tenant_key)
         self._staging: deque[tuple] = deque()  # guarded_by: _mu|_work
         #: staged aborts: (request_id | None = all, future -> bool)
         self._aborts: deque[tuple[Optional[str], Future]] = deque()  # guarded_by: _mu|_work
@@ -1053,8 +1186,32 @@ class PodServer:
         self.metrics = _ServingMetrics(
             obs=self.config.obs_metrics,
             lifecycle=self.config.obs_lifecycle,
+            tenant_qos=bool(self.config.tenant_qos.strip()),
+            integrity=self.config.kv_integrity,
             exemplars=self.config.obs_exemplars,
         )
+        # -- KV-block integrity plane (off = None, no hooks) ---------------
+        #: the engine's ``BlockIntegrity``, or None (KV_INTEGRITY off, or an
+        #: injected engine without it)
+        self.integrity = getattr(self.engine, "integrity", None)
+        self._integrity_quarantine_seen = 0  # loop-thread-only
+        # -- multi-tenant QoS (off = None, no hooks) -----------------------
+        #: the parsed TENANT_QOS policy and its per-tenant budgets. A
+        #: malformed spec raises here: a dropped entry would read as an
+        #: unbudgeted tenant.
+        self.qos = None
+        if self.config.tenant_qos.strip():
+            from .qos import TenantQoS, parse_tenant_qos
+
+            self.qos = TenantQoS(parse_tenant_qos(self.config.tenant_qos))
+            # Priority order and weighted shares in the scheduler, tenant
+            # page accounting and cache-share caps in the block manager, and
+            # with OBS_LIFECYCLE a reuse-distance slice per tenant.
+            self.engine.scheduler.attach_qos()
+            self.engine.block_manager.attach_qos(
+                self.qos,
+                mrc_factory=self._make_tenant_mrc if self.config.obs_lifecycle else None,
+            )
         # -- KV-capacity observability (off = None, no hooks) --------------
         #: block-lifecycle ledger + reuse-distance MRC (OBS_LIFECYCLE)
         self.lifecycle = None
@@ -1099,7 +1256,15 @@ class PodServer:
                 burn_threshold=(
                     self.config.obs_flight_burn if self.flight is not None else 0.0
                 ),
+                # Per-tenant burn slices (TENANT_QOS): the same observations
+                # sliced by the request's tenant key.
+                track_tenants=self.qos is not None,
             )
+        # -- disaggregated serving (POD_ROLE; "mixed" = nothing below runs) --
+        #: submits whose max_new_tokens the prefill role clamped to one
+        self.role_clamped_requests = 0  # guarded_by: _mu|_work
+        #: PrefillComplete events published (the handoff supply)
+        self.prefill_completes_published = 0  # guarded_by: _mu|_work
         self._running = False  # guarded_by: _mu|_work
         self._failed: Optional[str] = None
         self._thread: Optional[threading.Thread] = None
@@ -1148,6 +1313,30 @@ class PodServer:
         self.snapshots_published = 0  # guarded_by: _mu|_work
         self._self_heal_stop = threading.Event()
         self._self_heal_thread: Optional[threading.Thread] = None
+        # -- background integrity scrub (KV_INTEGRITY + an interval) --------
+        self._scrub_stop = threading.Event()
+        self._scrub_thread: Optional[threading.Thread] = None
+        # -- remote tier (REMOTE_TIER; off = nothing below runs) ------------
+        #: peers' demotion pushes staged for the engine loop (the remote
+        #: store shares the event stream's order)
+        self._remote_pushes: deque[tuple[str, list, Future]] = deque()  # guarded_by: _mu|_work
+        #: wire-ready payloads parked for the background pusher
+        self._demote_queue: deque = deque()  # guarded_by: _mu|_work
+        self._demote_thread: Optional[threading.Thread] = None
+        self._demote_stop = threading.Event()
+        #: each peer's headroom from its last push ack (None = not heard)
+        self._peer_headroom: dict[str, Optional[int]] = {}  # guarded_by: _mu|_work
+        self.demote_pushed_blocks = 0  # guarded_by: _mu|_work
+        self.demote_failed_blocks = 0  # fell back to plain eviction  # guarded_by: _mu|_work
+        self.demote_dropped = 0  # queue overflow (plain eviction)  # guarded_by: _mu|_work
+        #: the seconds and batches of the pushes that a peer acked
+        self.demote_push_s = 0.0  # guarded_by: _mu|_work
+        self.demote_push_batches = 0  # guarded_by: _mu|_work
+        self._remote_peers = [
+            p.strip() for p in self.config.remote_peers.split(",") if p.strip()
+        ]
+        if self.config.remote_tier and self._remote_peers:
+            self.engine.on_demotion = self._stage_demotions
         # -- live migration (FLEET_CONTROLLER; off = nothing below runs) ----
         #: freeze+export requests staged for the engine loop:
         #: (request_id, future -> (seq, MigrationPayload) | None)
@@ -1176,6 +1365,13 @@ class PodServer:
                 ),
                 handler=self._serve_export,
                 tracer=self.tracer,
+                # Pushes are accepted with the knob on and a store to hold
+                # them; otherwise they get the tolerant refusal.
+                push_handler=(
+                    self._serve_push
+                    if self.config.remote_tier and self.config.remote_store_pages > 0
+                    else None
+                ),
                 # Live-migration acceptance rides FLEET_CONTROLLER: off
                 # answers with the tolerant refusal the source reads as
                 # "resume locally".
@@ -1196,6 +1392,12 @@ class PodServer:
         self._thread.start()
         if self._transfer_service is not None:
             self._transfer_service.start()
+        if self.engine.on_demotion is not None:
+            self._demote_stop.clear()
+            self._demote_thread = threading.Thread(
+                target=self._demote_loop, name="kv-demote", daemon=True
+            )
+            self._demote_thread.start()
         if self._publisher is not None and (
             self.config.heartbeat_interval_s > 0 or self.config.resync_interval_s > 0
         ):
@@ -1204,6 +1406,12 @@ class PodServer:
                 target=self._self_heal_loop, name="self-heal", daemon=True
             )
             self._self_heal_thread.start()
+        if self.integrity is not None and self.config.integrity_scrub_interval_s > 0:
+            self._scrub_stop.clear()
+            self._scrub_thread = threading.Thread(
+                target=self._scrub_loop, name="kv-scrub", daemon=True
+            )
+            self._scrub_thread.start()
 
     def drain(self, timeout_s: Optional[float] = None) -> bool:
         """Graceful drain for rolling restarts. Flips the pod to draining
@@ -1331,6 +1539,14 @@ class PodServer:
         if self._self_heal_thread is not None:
             self._self_heal_thread.join(timeout=5)
             self._self_heal_thread = None
+        self._scrub_stop.set()
+        if self._scrub_thread is not None:
+            self._scrub_thread.join(timeout=5)
+            self._scrub_thread = None
+        self._demote_stop.set()
+        if self._demote_thread is not None:
+            self._demote_thread.join(timeout=10)
+            self._demote_thread = None
         if self._transfer_service is not None:
             self._transfer_service.shutdown()
         with self._mu:
@@ -1361,6 +1577,7 @@ class PodServer:
             transfers = (
                 list(self._transfer_exports)
                 + list(self._transfer_imports)
+                + list(self._remote_pushes)
                 + list(self._migrate_freezes)
                 + list(self._migrate_settles)
                 + list(self._migrations_in)
@@ -1369,10 +1586,12 @@ class PodServer:
             )
             self._transfer_exports.clear()
             self._transfer_imports.clear()
+            self._remote_pushes.clear()
             self._migrate_freezes.clear()
             self._migrate_settles.clear()
             self._migrations_in.clear()
             self._controller_reads.clear()
+            self._demote_queue.clear()
             self._digest_requests.clear()
             migrated_futs = list(self._migrated_in_futures.values())
             self._migrated_in_futures.clear()
@@ -1381,9 +1600,12 @@ class PodServer:
             self._pull_jobs.clear()
             self._pending = 0
             self._pending_tokens = 0
+            if self.qos is not None:
+                # Nothing outstanding survives an engine failure.
+                self.qos.reset_pending()
         for job in jobs:
             job["cancel"].set()
-        for _, _, _, _, fut, span, _, _ in staged:
+        for _, _, _, _, fut, span, _, _, _ in staged:
             span.set_attr("error", str(exc))
             span.end()
             if not fut.done():
@@ -1400,11 +1622,14 @@ class PodServer:
                 fut.set_exception(exc)
         self._futures.clear()
 
-    def _forget_pending(self, n_tokens: int) -> None:
-        """Release one request's admission accounting (engine loop only)."""
+    def _forget_pending(self, n_tokens: int, tenant: str = "") -> None:
+        """Release one request's admission accounting (engine loop only),
+        and with TENANT_QOS its tenant's budget ("" = untenanted)."""
         with self._mu:
             self._pending = max(self._pending - 1, 0)
             self._pending_tokens = max(self._pending_tokens - n_tokens, 0)
+            if self.qos is not None and tenant:
+                self.qos.on_resolved(tenant, n_tokens)
 
     def _resolve(self, seq: Sequence) -> None:
         """Resolve a finished/aborted sequence's future and release its
@@ -1418,7 +1643,7 @@ class PodServer:
         self.metrics.observe_finished(seq)
         if self.slo is not None:
             # The same measurements the latency histograms observe.
-            self.slo.observe(seq.ttft, seq.mean_itl)
+            self.slo.observe(seq.ttft, seq.mean_itl, tenant=seq.tenant)
         if seq.trace_span is not None:
             self._emit_request_spans(seq)
         if (
@@ -1447,9 +1672,31 @@ class PodServer:
                     self.audits_published += 1
             except Exception:
                 log.exception("RequestAudit publish failed")
+        if (
+            self.config.pod_role == "prefill"
+            and self._publisher is not None
+            and seq.finish_reason not in ("abort", "deadline")
+            and seq.num_generated >= 1
+        ):
+            # The handoff's announcement: the chain is registered and
+            # exportable. Failures are swallowed like heartbeats: the handoff
+            # itself (which carries the first token) does not need it.
+            try:
+                self._publisher.publish(
+                    [
+                        PrefillComplete(
+                            request_id=seq.request_id or "",
+                            num_blocks=seq.num_registered_pages,
+                        )
+                    ]
+                )
+                with self._mu:
+                    self.prefill_completes_published += 1
+            except Exception:
+                log.exception("PrefillComplete publish failed")
         fut = self._futures.pop(seq.seq_id, None)
         if fut is not None:
-            self._forget_pending(seq.user_prompt_len)
+            self._forget_pending(seq.user_prompt_len, seq.tenant)
             if not fut.done():
                 fut.set_result(seq)
 
@@ -1500,6 +1747,16 @@ class PodServer:
         span.end(end_mono=end)
 
     # -- flight recorder (OBS_FLIGHT) ----------------------------------------
+    def _make_tenant_mrc(self):
+        """One tenant's reuse-distance estimator (TENANT_QOS with
+        OBS_LIFECYCLE): the global curve's sampling knobs, and no
+        ``on_distance`` hook (the global estimator already feeds the
+        histogram)."""
+        return lifecycle_mod.ReuseDistanceEstimator(
+            sample_rate=self.config.obs_mrc_sample,
+            max_tracked=self.config.obs_mrc_tracked,
+        )
+
     def _on_slo_burn(self, objective: str, window: str, rate: float) -> None:
         """SLORecorder burn-crossing callback: the flight recorder's
         primary trigger. The burn sample itself rides the timeline, so a
@@ -1528,6 +1785,7 @@ class PodServer:
                         or self._aborts
                         or self._transfer_exports
                         or self._transfer_imports
+                        or self._remote_pushes
                         or self._digest_requests
                         or self._import_dones
                         or self._migrate_freezes
@@ -1547,6 +1805,8 @@ class PodServer:
                     self._transfer_exports.clear()
                     imports = list(self._transfer_imports)
                     self._transfer_imports.clear()
+                    pushes = list(self._remote_pushes)
+                    self._remote_pushes.clear()
                     digests = list(self._digest_requests)
                     self._digest_requests.clear()
                     import_dones = list(self._import_dones)
@@ -1571,6 +1831,11 @@ class PodServer:
                 for blocks, src_pod, fut in imports:
                     try:
                         fut.set_result(self.engine.import_kv_blocks(blocks, source_pod=src_pod))
+                    except Exception as e:
+                        fut.set_exception(e)
+                for source_pod, blocks, fut in pushes:
+                    try:
+                        fut.set_result(self.engine.accept_remote_blocks(source_pod, blocks))
                     except Exception as e:
                         fut.set_exception(e)
                 for hashes, max_blocks, fut in exports:
@@ -1605,13 +1870,22 @@ class PodServer:
                         fut.set_result(call())
                     except Exception as e:
                         fut.set_exception(e)
-                for tokens, sampling, deadline, rid, fut, span, action, pull in staged:
+                for tokens, sampling, deadline, rid, fut, span, action, pull, tenant in staged:
                     try:
-                        seq = self.engine.add_request(
-                            tokens, sampling, request_id=rid, deadline=deadline
-                        )
+                        if self.qos is not None:
+                            # The policy's class and weight ride the
+                            # sequence into the scheduler and block manager.
+                            pol = self.qos.policy(tenant)
+                            seq = self.engine.add_request(
+                                tokens, sampling, request_id=rid, deadline=deadline,
+                                tenant=tenant, priority=pol.priority, qos_weight=pol.weight,
+                            )
+                        else:
+                            seq = self.engine.add_request(
+                                tokens, sampling, request_id=rid, deadline=deadline
+                            )
                     except ValueError as e:
-                        self._forget_pending(len(tokens))
+                        self._forget_pending(len(tokens), tenant)
                         span.set_attr("error", str(e))
                         span.end()
                         # A disconnected client may have cancelled the future.
@@ -1693,6 +1967,18 @@ class PodServer:
                             prefill_tokens_s=self.engine._prefill_rate
                         )
                     self.metrics.sync_lifecycle_stats(self.engine.lifecycle_stats)
+                    if self.integrity is not None:
+                        istats = self.integrity.stats
+                        q = istats["quarantined"]
+                        if q > self._integrity_quarantine_seen:
+                            # A corrupt block surfaced this step: keep the
+                            # window around it before it scrolls away.
+                            delta = q - self._integrity_quarantine_seen
+                            self._integrity_quarantine_seen = q
+                            self._flight_event("kv_quarantine", blocks=delta)
+                            if self.flight is not None:
+                                self.flight.trigger("quarantine", blocks=delta)
+                        self.metrics.sync_integrity_stats(istats)
                     if obs:
                         self._loop_prev_end = time.perf_counter()
                         self._loop_had_work = self.engine.has_ready_work
@@ -1713,6 +1999,21 @@ class PodServer:
             self._fail_outstanding(RuntimeError(f"engine failed: {self._failed}"))
 
     # -- fleet self-healing --------------------------------------------------
+    def _scrub_loop(self) -> None:
+        """Background integrity scrub (KV_INTEGRITY with
+        ``INTEGRITY_SCRUB_INTERVAL_S`` > 0): every interval, hop onto the
+        engine loop and verify a bounded batch of resident host slots, so
+        latent rot surfaces before a restore reads it. Failures are logged:
+        the scrub never takes a pod down."""
+        interval = self.config.integrity_scrub_interval_s
+        while not self._scrub_stop.wait(interval):
+            try:
+                self._controller_read(
+                    lambda: self.engine.scrub_host_pages(self.config.integrity_scrub_pages)
+                )
+            except Exception as e:
+                log.warning("integrity scrub pass failed", error=repr(e))
+
     def _self_heal_loop(self) -> None:
         """Heartbeat / periodic-resync publisher. Runs only when a knob is
         enabled; all failures are swallowed — self-healing must never take
@@ -1740,8 +2041,9 @@ class PodServer:
 
     def _publish_heartbeat(self) -> None:
         """One ``Heartbeat`` from this thread (the self-heal thread or a
-        drain): the publisher serialises its socket under its own lock.
-        Role and headroom stay None, so the bytes are the legacy bytes."""
+        drain): the publisher serialises its socket under its own lock. The
+        role rides only a non-mixed pod's, the headroom only a remote-tier
+        pod's, so a knobs-off pod's bytes are the legacy bytes."""
         if self._publisher is None:
             return
         # Flag read under the lock; the (bounded-blocking) publish stays
@@ -1754,6 +2056,8 @@ class PodServer:
                     Heartbeat(
                         dropped_batches=getattr(self._publisher, "dropped_batches", 0),
                         draining=draining,
+                        role=self.config.pod_role if self.config.pod_role != "mixed" else None,
+                        headroom=self.engine.remote_headroom,
                     )
                 ]
             )
@@ -1880,6 +2184,133 @@ class PodServer:
 
             client.breaker.on_transition = _breaker_cb
         return client
+
+    # -- remote-tier demotion (REMOTE_TIER) ---------------------------------
+    def _serve_push(self, source_pod: str, blocks: list) -> tuple[int, int]:
+        """The transfer service's push handler (service thread): hop onto
+        the engine loop (the remote store shares the event stream's order)
+        and wait for the verdict, ``(accepted, headroom)``."""
+        fut: Future = Future()
+        with self._work:
+            if not self._running or self._failed is not None:
+                return 0, 0
+            self._remote_pushes.append((source_pod, blocks, fut))
+            self._work.notify()
+        return fut.result(timeout=max(self.config.transfer_timeout_s * 3, 30.0))
+
+    def _stage_demotions(self, payloads: list) -> None:
+        """``Engine.on_demotion`` sink (engine loop): park wire-ready
+        payloads for the pusher. Bounded: an overflow drops the oldest
+        payloads (the plain eviction the tier replaces), counted."""
+        dropped_hashes = []
+        with self._mu:
+            self._demote_queue.extend(payloads)
+            cap = max(self.config.remote_demote_queue, 1)
+            while len(self._demote_queue) > cap:
+                dropped_hashes.append(self._demote_queue.popleft().block_hash)
+            self.demote_dropped += len(dropped_hashes)
+        self._demote_failed_lifecycle(dropped_hashes)
+
+    def _demote_failed_lifecycle(self, hashes) -> None:
+        """End the ledger's optimistic ``remote`` residency of blocks the
+        pusher dropped or failed to place (the block manager records the
+        hand-off before the wire's outcome is known). A block registered
+        locally again meanwhile keeps its newer residency."""
+        if self.lifecycle is None:
+            return
+        for h in hashes:
+            if h is not None:
+                self.lifecycle.end_if_tier(h, "remote", "demote_failed")
+
+    def _demotion_targets(self) -> list[str]:
+        """Peers, most headroom first (unknown headroom ranks as open-ended
+        until an ack says otherwise), without those whose breaker is open.
+        A peer that acked zero headroom ranks last but stays a target: a
+        full store still accepts by rotating out its coldest blocks."""
+        with self._mu:
+            headroom = dict(self._peer_headroom)
+        open_eps = self.open_breaker_endpoints
+        ranked = []
+        for ep in self._remote_peers:
+            if ep in open_eps:
+                continue
+            h = headroom.get(ep)
+            ranked.append((-(h if h is not None else 1 << 30), ep))
+        ranked.sort()
+        return [ep for _, ep in ranked]
+
+    def _demote_loop(self) -> None:
+        """Background pusher: drain the parked demotions to the best target
+        in batches of ``transfer_max_blocks``. Every failure is plain
+        eviction; a dead target costs bounded timeouts, then its breaker."""
+        while not self._demote_stop.wait(0.02):
+            with self._mu:
+                if not self._demote_queue:
+                    continue
+                batch = []
+                cap = max(self.config.transfer_max_blocks, 1)
+                while self._demote_queue and len(batch) < cap:
+                    batch.append(self._demote_queue.popleft())
+            self._push_batch(batch)
+
+    def _push_batch(self, batch: list) -> None:
+        for endpoint in self._demotion_targets():
+            client = self._get_client(endpoint)
+            if client is None:
+                break  # shutting down: plain eviction
+            t0 = time.perf_counter()
+            try:
+                accepted, headroom = client.push_blocks(
+                    self.config.model_name,
+                    self.config.pod_identifier,
+                    batch,
+                    timeout_s=self.config.transfer_timeout_s,
+                )
+            except TransferError as e:
+                log.warning(
+                    "demotion push failed; trying next peer",
+                    target=endpoint,
+                    blocks=len(batch),
+                    error=repr(e),
+                )
+                continue
+            with self._mu:
+                self._peer_headroom[endpoint] = headroom
+                self.demote_pushed_blocks += accepted
+                self.demote_push_s += time.perf_counter() - t0
+                self.demote_push_batches += 1
+                if accepted < len(batch):
+                    # Rejected or already held: the rest is plainly evicted.
+                    self.demote_failed_blocks += len(batch) - accepted
+            if accepted < len(batch):
+                # The ack counts, it names no block; the store validates in
+                # order, so the tail is charged.
+                self._demote_failed_lifecycle([b.block_hash for b in batch[accepted:]])
+            return
+        with self._mu:
+            self.demote_failed_blocks += len(batch)
+        self._demote_failed_lifecycle([b.block_hash for b in batch])
+
+    def purge_bad_blocks(self, holder: str, block_hashes: list, medium=None) -> int:
+        """The fleet's revocation consumer: a ``BadBlock`` that ``holder``
+        published reached the control plane, so drop the copies this pod's
+        remote store holds for those hashes (they share provenance with the
+        corrupt ones; locally computed pages stay). Runs on the engine loop.
+        Returns the blocks dropped: 0 when the holder is this pod or there is
+        no store. Not knob-gated: every pod honours revocations."""
+        if (
+            self.engine.remote_store is None
+            or not block_hashes
+            or holder == self.config.pod_identifier
+        ):
+            return 0
+        try:
+            return (
+                self._controller_read(lambda: self.engine.remote_store.purge(block_hashes)) or 0
+            )
+        except Exception as e:
+            log.warning("bad-block purge failed", error=repr(e))
+            return 0
 
     # -- live sequence migration (FLEET_CONTROLLER) --------------------------
     def migrate_out(
@@ -2414,14 +2845,28 @@ class PodServer:
             est = queued_tokens / self.engine._prefill_rate
         return float(min(max(est if est is not None else 1.0, 1.0), 60.0))
 
-    def _check_admission(self, n_tokens: int) -> None:  # kvlint: holds=_work
+    def _check_admission(self, n_tokens: int, tenant: str = "") -> None:  # kvlint: holds=_work
         """Admission control (caller holds ``_mu``): reject fast — before
         the request touches the engine — when the configured queue-depth or
-        queued-token cap would be exceeded. Both caps off (0) = unbounded
-        admission. The JAX pod's per-tenant budgets (``TENANT_QOS``) are
-        checked first there; the port has no tenant QoS yet, so that
-        branch is left out."""
+        queued-token cap would be exceeded. ``tenant``: the request's QoS
+        slice key; with TENANT_QOS its budgets (max_waiting,
+        max_queued_tokens, rps) are checked first, so a tenant over its
+        budget gets the tenant's 429 even when the pod has room. Both caps
+        off (0) and no QoS policy = unbounded admission."""
         cfg = self.config
+        if self.qos is not None:
+            verdict = self.qos.admit(tenant, n_tokens)
+            if verdict is not None:
+                cap, message, rate_hint, t_depth, t_queued = verdict
+                self.admission_rejected += 1
+                self.metrics.observe_rejected(draining=False)
+                self._flight_event("admission_reject", cap=f"tenant_{cap}", tenant=tenant)
+                # A rate rejection knows when its window frees a slot; a
+                # budget rejection estimates from the tenant's own queue.
+                raise AdmissionError(
+                    message,
+                    rate_hint if rate_hint is not None else self._retry_after_s(t_depth, t_queued),
+                )
         if cfg.admission_max_waiting <= 0 and cfg.admission_max_queued_tokens <= 0:
             return
         sch = self.engine.scheduler
@@ -2463,6 +2908,7 @@ class PodServer:
         trace_ctx=None,
         route_action: Optional[str] = None,
         pull_source: Optional[str] = None,
+        tenant: str = "",
     ) -> Future:
         """Enqueue a request; the Future resolves to the finished Sequence
         (or raises: invalid request, engine failure, shutdown). Raises
@@ -2479,9 +2925,26 @@ class PodServer:
         ``pull_source``: a peer's transfer endpoint whose warm prefix this
         request should import; honoured only with ``async_pull`` on (the
         request then waits ``importing`` while a worker fetches it; any
-        failure means cold prefill), ignored otherwise."""
+        failure means cold prefill), ignored otherwise. ``tenant``: the
+        request's tenant (the ``X-Tenant`` header); with ``TENANT_QOS`` it
+        is collapsed onto a policy slice key for budgets, scheduling, cache
+        accounting and observability, and ignored otherwise. A ``prefill``
+        pod clamps ``max_new_tokens`` to 1; a ``kvstore`` pod raises
+        ``ValueError``."""
         if not prompt_tokens:
             raise ValueError("empty prompt")
+        if self.config.pod_role == "kvstore":
+            # Storage, not compute: a misrouted request fails loudly.
+            raise ValueError("kvstore pods do not serve requests")
+        clamped = False
+        if self.config.pod_role == "prefill":
+            # The prefill tier stops at the first token: every sequence
+            # finishes at its prefill commit; decode belongs to the decode
+            # tier.
+            sampling = sampling or SamplingParams()
+            if sampling.max_new_tokens > 1:
+                sampling = replace(sampling, max_new_tokens=1)
+                clamped = True
         if deadline_s is None and self.config.default_deadline_s > 0:
             deadline_s = self.config.default_deadline_s
         deadline = (
@@ -2490,6 +2953,9 @@ class PodServer:
             else None
         )
         rid = request_id or str(uuid.uuid4())
+        # The raw tenant header collapses onto a policy slice key at once:
+        # everything downstream sees a bounded set of keys.
+        tkey = self.qos.key(tenant) if self.qos is not None else ""
         fut: Future = Future()
         fut.request_id = rid
         with self._work:
@@ -2502,7 +2968,9 @@ class PodServer:
                 self.metrics.observe_rejected(draining=True)
                 self._flight_event("admission_reject", cap="draining")
                 raise DrainingError("pod is draining; retry against another pod")
-            self._check_admission(len(prompt_tokens))
+            self._check_admission(len(prompt_tokens), tkey)
+            if clamped:
+                self.role_clamped_requests += 1
             # The span starts at submit (queueing time includes staging),
             # after the reject paths — a 429/503 is not a served request.
             span = self.tracer.start_span(
@@ -2517,9 +2985,11 @@ class PodServer:
             fut.trace_context = span.context
             self._pending += 1
             self._pending_tokens += len(prompt_tokens)
+            if self.qos is not None:
+                self.qos.on_admitted(tkey, len(prompt_tokens))
             pull = pull_source if pull_source and self.config.async_pull else None
             self._staging.append(
-                (list(prompt_tokens), sampling, deadline, rid, fut, span, route_action, pull)
+                (list(prompt_tokens), sampling, deadline, rid, fut, span, route_action, pull, tkey)
             )
             self._work.notify()
         return fut
@@ -2625,6 +3095,9 @@ class PodServer:
             pull_source = (
                 request.headers.get("X-Pull-Source") if self.config.async_pull else None
             )
+            # The tenant (X-Tenant), read only with TENANT_QOS on; an absent
+            # or unknown tenant collapses onto the "*" entry in submit.
+            tenant = request.headers.get("X-Tenant", "") if self.qos is not None else ""
             try:
                 fut = self.submit(
                     token_ids,
@@ -2633,6 +3106,7 @@ class PodServer:
                     trace_ctx=trace_ctx,
                     route_action=route_action,
                     pull_source=pull_source,
+                    tenant=tenant,
                 )
             except AdmissionError as e:  # overloaded: fast 429, engine untouched
                 return admission_reject_response(web, e)
@@ -2747,7 +3221,15 @@ class PodServer:
                 async_pulls = self.async_pulls
                 async_fallbacks = self.async_pull_fallbacks
                 async_canceled = self.async_pull_canceled
+                role_clamped = self.role_clamped_requests
+                prefill_completes = self.prefill_completes_published
                 audits_published = self.audits_published
+                demote_pushed = self.demote_pushed_blocks
+                demote_failed = self.demote_failed_blocks
+                demote_dropped = self.demote_dropped
+                demote_queued = len(self._demote_queue)
+                peer_headroom = dict(self._peer_headroom)
+                tenant_qos_snap = self.qos.snapshot() if self.qos is not None else None
                 # Fleet-controller counters in the same cut.
                 migrations_out = self.migrations_out
                 migrations_in = self.migrations_in
@@ -2799,6 +3281,13 @@ class PodServer:
                     "forced_requests": drain_forced,
                 },
             }
+            if self.config.pod_role != "mixed":
+                # Only on a pod with a role.
+                payload["disagg"] = {
+                    "role": self.config.pod_role,
+                    "role_clamped_requests": role_clamped,
+                    "prefill_completes_published": prefill_completes,
+                }
             if self.config.async_pull:
                 # Async-import block only when the knob is on: the knobs-off
                 # /stats payload stays the legacy one.
@@ -2808,6 +3297,27 @@ class PodServer:
                     "pulls": async_pulls,
                     "fallbacks": async_fallbacks,
                     "canceled": async_canceled,
+                }
+            if self.config.remote_tier:
+                # Remote-tier block only when the knob is on.
+                store = self.engine.remote_store
+                payload["remote"] = {
+                    "peers": list(self._remote_peers),
+                    "store_pages": self.config.remote_store_pages,
+                    "store_cached": len(store) if store is not None else 0,
+                    "headroom": self.engine.remote_headroom,
+                    "peer_headroom": peer_headroom,
+                    **dict(self.engine.remote_stats),
+                    "pushed_blocks": demote_pushed,
+                    "push_failed_blocks": demote_failed,
+                    "queue_dropped": demote_dropped,
+                    "queued": demote_queued,
+                    "store_stats": dict(store.stats) if store is not None else {},
+                    "pushes_served": (
+                        self._transfer_service.pushes_served if self._transfer_service else 0
+                    ),
+                    # Pulls and demotion pushes share one DEALER a peer.
+                    "clients": self._transfer_pool.snapshot(),
                 }
             if bm.config.host_pages > 0:
                 # Host tier + KV quant block only when the tier knob is on.
@@ -2819,6 +3329,9 @@ class PodServer:
                     **dict(bm.host_stats),
                     "prefetch": dict(self.engine.host_prefetch_stats),
                 }
+            if self.integrity is not None:
+                # Integrity block only with KV_INTEGRITY on.
+                payload["integrity"] = self.integrity.snapshot()
             if self.config.engine.kv_quant_hbm is not None:
                 # Only when the device-page quant knob is on.
                 payload["kv_quant_hbm"] = {
@@ -2848,6 +3361,21 @@ class PodServer:
                 }
             if self.config.obs_flight:
                 payload["flight"] = self.flight.snapshot()
+            if self.qos is not None:
+                # Tenant-QoS block only with the knob on. The scheduler's and
+                # block manager's tenant state are read as the queue depths
+                # above are: point-in-time reads.
+                sch = self.engine.scheduler
+                tenant_qos_snap["qos_served_tokens"] = {
+                    t: round(v, 1) for t, v in dict(sch._qos_served).items()
+                }
+                tenant_qos_snap["cache"] = {
+                    "evictable_pages": dict(bm._tenant_evictable),
+                    "stats": {t: dict(st) for t, st in dict(bm.tenant_stats).items()},
+                }
+                if self.slo is not None:
+                    tenant_qos_snap["slo_burn"] = self.slo.tenant_burn_rates()
+                payload["tenant_qos"] = tenant_qos_snap
             if self.config.fleet_controller:
                 payload["fleet"] = {
                     "migrations_out": migrations_out,
@@ -2870,6 +3398,8 @@ class PodServer:
             if self.slo is not None:
                 # Scrape-driven: the burn rates recompute here.
                 self.slo.sync_gauges(self.metrics.set_slo_burn)
+                if self.qos is not None:
+                    self.slo.sync_tenant_gauges(self.metrics.set_tenant_slo_burn)
             body = self.metrics.exposition()
             if body is None:
                 return web.json_response(
@@ -2906,7 +3436,18 @@ class PodServer:
             status, payload = lifecycle_mod.debug_mrc_payload(
                 self.mrc, tier_capacities=caps, query=request.query
             )
-            return web.json_response(payload, status=status)
+            if status != 200:
+                return web.json_response(payload, status=status)
+            if self.qos is not None:
+                # Each tenant's own curve (TENANT_QOS with OBS_LIFECYCLE):
+                # how much cache that tenant's hit rate needs.
+                payload["tenants"] = {
+                    t: lifecycle_mod.debug_mrc_payload(
+                        est, tier_capacities=caps, query=request.query
+                    )[1]
+                    for t, est in sorted(dict(self.engine.block_manager._tenant_mrc).items())
+                }
+            return web.json_response(payload)
 
         async def debug_flight(request: web.Request) -> web.Response:
             """Flight-recorder counters and the latest triggered timeline

@@ -78,6 +78,12 @@ COPIES = [
     "kvcache/controller/inprocess.py",
     "kvcache/controller/__init__.py",
     "server/sampling.py",
+    # The knob-gated fleet glue: roles, the remote tier, integrity, tenants.
+    "kvcache/disagg/__init__.py",
+    "kvcache/disagg/coordinator.py",
+    "kvcache/transfer/remote_store.py",
+    "kvcache/integrity.py",
+    "server/qos.py",
 ]
 
 #: Sources copied byte for byte.
@@ -117,6 +123,7 @@ _TAG_FORMS = [
     (rf"\bthe {_NUM} ", "the "),
     (rf"\bthe {_NUM}\n(\s*)", r"the\n\1"),
     (rf"\b{_NUM} ", ""),
+    (r"\bPRs \d+-\d+ ", ""),
 ]
 
 

@@ -99,9 +99,16 @@ def pod(torch_side: bool, pod_id: str, *, publisher=None, total_pages: int = 64,
         engine_kw=None, start: bool = True, **cfg):
     """A pod on TINY_LLAMA's shared parameters (pages of 4); ``cfg``:
     further ``PodServerConfig`` fields; ``engine_kw``: ``engine_config``
-    arguments."""
+    arguments. The pod's ``remote_tier``/``remote_store_pages`` and
+    ``kv_integrity`` reach the engine's config, as a pod that builds its own
+    engine threads them."""
     jp, tp = shared_params()
-    econf = engine_config(torch_side, total_pages=total_pages, **(engine_kw or {}))
+    knobs = {}
+    if cfg.get("remote_tier"):
+        knobs.update(remote_tier=True, remote_store_pages=cfg.get("remote_store_pages", 0))
+    if cfg.get("kv_integrity"):
+        knobs["kv_integrity"] = True
+    econf = engine_config(torch_side, total_pages=total_pages, **{**knobs, **(engine_kw or {})})
     if torch_side:
         config = TPodConfig(model_name=MODEL, pod_identifier=pod_id, publish_events=False,
                             engine=econf, **cfg)
