@@ -1,7 +1,8 @@
 """GPU smoke test of the PyTorch/CUDA port: builds the Hopper kernels, holds
 each against its plain PyTorch version at the shapes the serving paths
 give it (Llama-3.1-8B attention, over bf16 and over int8 KV pages, decode
-at 8 lanes and at one 4096-token lane, prefill in three call forms;
+at 8 lanes and at one 4096-token lane, prefill in four call forms, the
+speculative verify round's among them;
 decode also at a GQA group of 16;
 Qwen3-30B-A3B attention at GQA group 8 and its grouped expert matmuls,
 bf16 and int8, in five group-size forms) and times the kernels with the L2
@@ -39,6 +40,10 @@ index configurations. The ``fleet`` phase routes, sheds, drains and
 resyncs two pods behind a ``BlendedRouter``; the ``fleet_controller``
 phase burns an SLO into a flight dump, live-migrates in-flight decodes
 between pods, and runs a ``FleetController`` scale-down and warm scale-up.
+The ``spec_decode`` phase serves eight
+512-token prompts on engines with speculative decoding off and at 1 and 3
+verify rounds a burst, holding the K1/K2 launch counts and every stream
+against spec-off, and profiles a verify round against a decode step.
 The int8 KV path also holds both int8 scale divisions on the card
 bit-equal to the CPU.
 
@@ -371,10 +376,16 @@ def check_decode(ops, dev, gen, n_kv=8, *, quantized=False, models=None, llama=N
 #: zero-width block table; a warm one (two repeats of a 1024-token prompt,
 #: 1008 tokens cached) has six rows with nothing valid and a context that
 #: ends inside a key tile.
+#: "spec_verify" is the speculative verify round's form (8 lanes, chunk 8,
+#: 1-5 valid rows, contexts not page-aligned).
 PREFILL_FORMS = {
     "kernels_phase": dict(b=2, s=512, ctx=[0, 1024], nv=[512, 300], ctx_pages=64),
     "engine_cold": dict(b=8, s=1024, ctx=[0] * 8, nv=[1024] * 6 + [517, 0], ctx_pages=0),
     "engine_warm": dict(b=8, s=64, ctx=[1008] * 2 + [0] * 6, nv=[16] * 2 + [0] * 6, ctx_pages=64),
+    # A speculative verify round: [last token ++ up to 4 drafts] in a chunk
+    # of 8 over contexts (seq_len - 1) that end inside a page.
+    "spec_verify": dict(b=8, s=8, ctx=[4095, 1023, 517, 2049, 33, 1, 700, 1500],
+                        nv=[5, 1, 5, 3, 5, 2, 1, 5], ctx_pages=256),
 }
 
 
@@ -711,7 +722,7 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
          fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True,
-         fleet_controller=True, disagg_tiers=True),
+         fleet_controller=True, disagg_tiers=True, spec_decode=True),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
          fast_path=True),
@@ -1087,6 +1098,10 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         steps, by_path[label] = disagg_tiers(pkg, ops, dev, card, eng.params, cfg)
         for step in steps:
             emit(dict(step, path=label))
+    if path.get("spec_decode"):
+        label = path["label"] + "_spec_decode"
+        result, by_path[label] = spec_decode(pkg, ops, dev, card, eng.params, cfg)
+        emit(dict(result, path=label))
     return by_path
 
 
@@ -2750,16 +2765,16 @@ def frozen_batch(pkg, pod: FleetPod, prompts, rids, new_tokens: int = FC_NEW,
     return futs, gate
 
 
-def migration_logit_move(pkg, params, cfg, tokens, cached: int, ps, dev) -> float:
+def migration_logit_move(pkg, params, cfg, tokens, cached: int, ps, dev,
+                         n_prompt: int = FC_PROMPT) -> float:
     """How far one token's logits move between the two ways a migration
     computes them: the source decodes every token after the prompt
     (``decode_step`` over a pool its prefill wrote), the target re-prefills
     the context past its ``cached`` imported tokens over those pages (one
     warm prefill). ``tokens`` is the folded context (prompt and the tokens
-    generated before the freeze); the largest absolute difference of the
-    next token's logits."""
+    generated before the freeze, after an ``n_prompt``-token prompt); the
+    largest absolute difference of the next token's logits."""
     models, llama = pkg["models"], pkg["llama"]
-    n_prompt = FC_PROMPT
     pages = len(tokens) // ps + 2
     pool = list(models.init_kv_pages(cfg, pages, ps, dev))
     table = torch.arange(1, pages, dtype=torch.int32, device=dev)
@@ -4331,6 +4346,227 @@ def decode_fast_path(pkg, ops, eng, cfg, prompts, ps, dev) -> dict:
     del pool
     free_cuda()
     return out
+
+
+# -- speculative decoding -------------------------------------------------------
+#: the phase's requests: 8 prompts of 512 tokens, six of them a random
+#: 32-token pattern repeated 16 times (prompt lookup finds proposals) and
+#: two random (lookup mostly misses), 64 new tokens each
+SD_PROMPT, SD_PATTERN, SD_ECHO, SD_NEW = 512, 32, 6, 64
+#: the three engines: spec off, then spec on at 1 and 3 verify rounds a
+#: burst, with JAX's defaults otherwise (spec_k=4, spec_ngram=3, the gate)
+SD_RUNS = (
+    ("spec_off", {}),
+    ("rounds1", dict(spec_decode="prompt_lookup", spec_rounds=1)),
+    ("rounds3", dict(spec_decode="prompt_lookup", spec_rounds=3)),
+)
+SD_PAGES = 1024
+
+
+def sd_drive(server, ops, eng, prompts, samplings) -> tuple[list, dict, dict]:
+    """Serve ``prompts`` through ``eng.step`` with every launch count zeroed
+    just before and read just after; host wall time by kind of step
+    (prefill, plain decode, speculative verify burst) and the tokens each
+    decode kind emitted."""
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    seqs = [eng.add_request(p, sp) for p, sp in zip(prompts, samplings)]
+    t = {f"{kind}_{key}": 0 for kind in ("prefill", "decode", "verify") for key in ("s", "steps")}
+    t.update(decode_tokens=0, verify_tokens=0, capture_s=0, capture_tokens=0)
+    while eng.has_work:
+        before = (eng.prefill_stats["dispatches"], eng.spec_stats["bursts"],
+                  eng.decode_stats["dispatches"], len(eng.decode_graphs.keys))
+        g0 = sum(s.num_generated for s in seqs)
+        t0 = time.perf_counter()
+        eng.step()
+        dt = time.perf_counter() - t0
+        gen = sum(s.num_generated for s in seqs) - g0
+        if eng.prefill_stats["dispatches"] > before[0]:
+            kind = "prefill"
+        elif eng.spec_stats["bursts"] > before[1]:
+            kind = "verify"
+        elif eng.decode_stats["dispatches"] > before[2]:
+            kind = "decode"
+        else:
+            continue
+        t[f"{kind}_s"] += dt
+        t[f"{kind}_steps"] += 1
+        if kind != "prefill":
+            t[f"{kind}_tokens"] += gen
+        if len(eng.decode_graphs.keys) > before[3]:
+            t["capture_s"] += dt
+            t["capture_tokens"] += gen
+    launches = {name: wrapper.launches for name, wrapper in ops.COUNTED.items()}
+    torch.cuda.synchronize()
+    return seqs, t, launches
+
+
+def sd_parity(pkg, eng_off, cfg, prompts, off, on, ps, dev, cache: dict, what: str) -> list[dict]:
+    """Spec-on tokens against spec-off: equal, or the first difference is a
+    near tie — the spec-off model's top-2 logit gap there (one cold
+    prefill) is at most twice the logit move between the two kernels that
+    score that token (``migration_logit_move``: decode through K1 against a
+    one-token verify through K2 over the same pages), the rule
+    ``migration_parity`` applies."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(off, on)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        if j == 0:
+            fail(f"spec_decode ({what}): request {i}'s first token (from prefill) differs")
+        if (i, j) not in cache:
+            d = top2_gap(pkg, eng_off, cfg, prompts[i], a[:j], ps, dev)
+            context = list(prompts[i]) + list(a[:j])
+            d["logit_move"] = migration_logit_move(pkg, eng_off.params, cfg, context,
+                                                   len(context) - 1, ps, dev,
+                                                   n_prompt=len(prompts[i]))
+            cache[(i, j)] = d
+        d = dict(cache[(i, j)], request=i, index=j, spec_off=a[j], spec_on=b[j])
+        if d["top2_gap"] > 2 * d["logit_move"]:
+            fail(f"spec_decode ({what}): tokens differ from spec-off with a top-2 gap beyond "
+                 f"what the change of kernel moves the logits by: {d}")
+        diffs.append(d)
+    return diffs
+
+
+def sd_verify_profile(pkg, ops, params, cfg, dev, rng) -> dict:
+    """``profile_window`` over one verify round as the engine dispatches it
+    (the packed upload, ``spec_decode_steps`` at one round, the packed
+    fetch) for 8 lanes whose windows hold a 32-token pattern over 576
+    tokens, so every lane proposes 4 drafts; on a scratch pool."""
+    models, llama = pkg["models"], pkg["llama"]
+    ps, k, n, lanes = 16, 4, 3, 8
+    hist = SD_PROMPT + SD_NEW
+    table_w = -(-(hist + k + 1) // (16 * ps)) * 16  # pages, a multiple of 16
+    kp, vp = models.init_kv_pages(cfg, lanes * table_w + 1, ps, dev)
+    scan_need = 4096
+    W = scan_need + k + 1
+    packed = np.zeros((lanes, W + table_w + 5), np.int32)
+    for i in range(lanes):
+        packed[i, :hist] = np.tile(rng.integers(0, cfg.vocab_size, SD_PATTERN), hist // SD_PATTERN)
+        packed[i, W : W + table_w] = 1 + i * table_w + np.arange(table_w)
+        packed[i, W + table_w :] = [hist, hist, SD_NEW, 1, 0]
+    fparams = np.tile(np.array([[0.0, 1.0]], np.float32), (lanes, 1))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    last = []
+
+    def verify():
+        out = llama.spec_decode_steps(
+            params, cfg, torch.from_numpy(packed).to(dev), torch.from_numpy(fparams).to(dev),
+            kp, vp, gen, page_size=ps, num_rounds=1, s_chunk=8, ngram=n, spec_k=k,
+            max_scan=scan_need, table_w=table_w, sampled=False)[0]
+        last[:] = [out.cpu().numpy()]
+
+    verify()
+    if not (last[0][0, :, k + 2] == k).all():
+        fail(f"spec_decode: the verify profile's lanes did not all propose {k}: {last[0][0]}")
+    verify()
+    out = profile_window(verify, 4, 1, ops.COUNTED)
+    del kp, vp
+    free_cuda()
+    return dict(out, lanes=lanes, context_tokens=hist - 1, valid_rows_per_lane=k + 1)
+
+
+def spec_decode(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """Speculative decoding on the 8B parameters through ``Engine.step``:
+    the same eight requests on three engines (spec off, 1 and 3 verify
+    rounds a burst; in the 3-round run the first lane samples at
+    temperature 0.9, top_k 1). Held: proposals happened, verify_steps =
+    rounds x bursts, 64 tokens each, K2 launched once a layer a prefill
+    dispatch and a verify round and K1 once a layer a plain decode step
+    (exact), and every stream equal to spec-off but at a near tie
+    (``sd_parity``). Then one verify round profiled against a plain decode
+    step (``profile_decode`` on the spec-off engine)."""
+    server = pkg["server"]
+    ps = 16
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, SD_PATTERN), SD_PROMPT // SD_PATTERN).tolist()
+               for _ in range(SD_ECHO)]
+    prompts += [rng.integers(0, cfg.vocab_size, SD_PROMPT).tolist() for _ in range(8 - SD_ECHO)]
+    runs, engines, launches_sum, cache = {}, {}, {}, {}
+    for label, knobs in SD_RUNS:
+        eng = server.Engine(
+            server.EngineConfig(
+                model=cfg, block_manager=server.BlockManagerConfig(total_pages=SD_PAGES, page_size=ps),
+                max_model_len=4096, decode_batch_size=8, seed=SEED, **knobs),
+            params=params, device=dev)
+        samplings = [server.SamplingParams(max_new_tokens=SD_NEW) for _ in prompts]
+        if label == "rounds3":
+            samplings[0] = server.SamplingParams(max_new_tokens=SD_NEW, temperature=0.9, top_k=1)
+        seqs, t, launches = sd_drive(server, ops, eng, prompts, samplings)
+        for seq in seqs:
+            if seq.error or len(seq.generated_tokens) != SD_NEW:
+                fail(f"spec_decode ({label}): request {seq.seq_id} finished with "
+                     f"{len(seq.generated_tokens)} tokens, error={seq.error}")
+        stats = dict(eng.spec_stats)
+        rounds = knobs.get("spec_rounds", 0)
+        if knobs:
+            if stats["proposed"] == 0:
+                fail(f"spec_decode ({label}): no proposal in {stats}")
+            if stats["verify_steps"] != rounds * stats["bursts"]:
+                fail(f"spec_decode ({label}): verify_steps != rounds x bursts: {stats}")
+        decode_steps = eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps
+        expected = expected_launches(cfg, None, None,
+                                     eng.prefill_stats["dispatches"] + stats["verify_steps"],
+                                     decode_steps)
+        if launches != expected:
+            fail(f"spec_decode ({label}): kernel launches {launches} != expected {expected}")
+        for name, count in launches.items():
+            launches_sum[name] = launches_sum.get(name, 0) + count
+        tokens = [list(s.generated_tokens) for s in seqs]
+        decode_s = t["decode_s"] + t["verify_s"]
+        decode_tokens = t["decode_tokens"] + t["verify_tokens"]
+        runs[label] = dict(
+            spec_stats=stats,
+            acceptance_rate=stats["accepted"] / stats["proposed"] if stats["proposed"] else None,
+            prefill_dispatches=eng.prefill_stats["dispatches"],
+            plain_decode_steps=decode_steps,
+            launches=launches,
+            decode_tokens_per_s=decode_tokens / decode_s,
+            decode_tokens_per_s_without_captures=(decode_tokens - t["capture_tokens"])
+            / (decode_s - t["capture_s"]),
+            verify_ms_per_burst=1e3 * t["verify_s"] / t["verify_steps"] if t["verify_steps"] else None,
+            tokens_per_verify_burst=t["verify_tokens"] / t["verify_steps"] if t["verify_steps"] else None,
+            plain_decode_ms_per_step=1e3 * t["decode_s"] / t["decode_steps"] if t["decode_steps"] else None,
+            **t,
+        )
+        if label != "spec_off":
+            runs[label]["parity"] = sd_parity(pkg, engines["spec_off"], cfg, prompts,
+                                              runs["spec_off"]["tokens"], tokens, ps, dev, cache,
+                                              label)
+            runs[label]["requests_equal_to_spec_off"] = sum(
+                a == b for a, b in zip(runs["spec_off"]["tokens"], tokens))
+        runs[label]["tokens"] = tokens
+        engines[label] = eng
+    for label in ("rounds1", "rounds3"):
+        del engines[label]
+    free_cuda()
+    t0 = time.perf_counter()
+    verify = sd_verify_profile(pkg, ops, params, cfg, dev, rng)
+    decode = profile_decode(engines["spec_off"], prompts, server, ops)
+    profile_s = time.perf_counter() - t0
+    del engines
+    free_cuda()
+    for run in runs.values():
+        del run["tokens"]
+    return {
+        "phase": "spec_decode",
+        "card": card,
+        "n_layers": cfg.n_layers,
+        "requests": len(prompts),
+        "echo_prompts": SD_ECHO,
+        "prompt_tokens": SD_PROMPT,
+        "new_tokens_each": SD_NEW,
+        "spec_k": 4,
+        "spec_ngram": 3,
+        "runs": runs,
+        "verify_round_profile": verify,
+        "plain_decode_step_profile": decode,
+        "profile_s": profile_s,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }, launches_sum
 
 
 def attention_checks(ops, models, llama, dev, gen) -> list[dict]:

@@ -41,6 +41,7 @@ from ..ops import (
     rms_norm,
     rope_frequencies,
     sample_tokens,
+    spec_sample,
 )
 from ..ops.attention import widen_paged_context
 from ..ops.rope import RopeScalingConfig
@@ -464,19 +465,29 @@ def _scatter_kv_pages_all_layers(
     fresh: torch.Tensor,  # [n_layers, b, s, n_kv, hd]
     page_ids: torch.Tensor,  # [b, s]
     slot_ids: torch.Tensor,  # [b, s]
-    valid: Optional[torch.Tensor],  # [b, s] bool; None = every row
+    valid: Optional[torch.Tensor],  # [b, s] bool, right-padded; None = every row
 ) -> torch.Tensor:
     """Write every layer's fresh K or V into the pool with one in-place
-    update. The JAX version redirects invalid rows out of range and drops
-    them; torch has no drop mode, so only the valid rows are indexed."""
+    update and no host synchronisation. The JAX version redirects invalid
+    rows out of range and drops them; torch has no drop mode, so an invalid
+    row is written to its row's first slot with what that slot ends up
+    holding: the row's first fresh token when the row has one, else the
+    value already in the pool. Duplicate indices then carry equal values,
+    so the update is deterministic. Contract: no page slot is shared
+    between rows (padded rows all point at reserved page 0, slot 0, which
+    no valid row writes)."""
     L, _, _, n_kv, hd = pages.shape
-    pidx = page_ids.reshape(-1).long()
-    sidx = slot_ids.reshape(-1).long()
-    updates = fresh.reshape(L, -1, n_kv, hd).to(pages.dtype)
+    b, s = page_ids.shape
+    fresh = fresh.to(pages.dtype)
     if valid is not None:
-        keep = valid.reshape(-1).nonzero().squeeze(1)
-        pidx, sidx, updates = pidx[keep], sidx[keep], updates[:, keep]
-    pages[:, pidx, sidx] = updates
+        page_ids = torch.where(valid, page_ids, page_ids[:, :1])
+        slot_ids = torch.where(valid, slot_ids, slot_ids[:, :1])
+        held = pages[:, page_ids[:, 0].long(), slot_ids[:, 0].long()]  # [L, b, n_kv, hd]
+        first = torch.where(valid[None, :, :1, None, None], fresh[:, :, :1], held[:, :, None])
+        fresh = torch.where(valid[None, :, :, None, None], fresh, first)
+    pages[:, page_ids.reshape(-1).long(), slot_ids.reshape(-1).long()] = fresh.reshape(
+        L, b * s, n_kv, hd
+    )
     return pages
 
 
@@ -563,34 +574,27 @@ def _quantized_scatter_kv_all_layers(
     return pages_q, scales
 
 
-def prefill(
+def _prefill_body(
     params: Params,
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [b, s] int32, right-padded
     positions: torch.Tensor,  # [b, s] int32 absolute positions
     valid: torch.Tensor,  # [b, s] bool, right-padded prefix mask
-    k_pages: torch.Tensor,  # [n_layers, pages, page_size, n_kv, hd]
+    k_pages: torch.Tensor,
     v_pages: torch.Tensor,
-    page_ids: torch.Tensor,  # [b, s] destination page per token
-    slot_ids: torch.Tensor,  # [b, s] destination slot per token
-    block_tables: torch.Tensor,  # [b, max_ctx_pages] int32 — cached-context pages
-    ctx_lens: torch.Tensor,  # [b] int32 — prefix-cached context length
-    k_scales: Optional[torch.Tensor] = None,  # [n_layers, pages, n_kv] f32 (int8 pools)
+    page_ids: torch.Tensor,  # [b, s]
+    slot_ids: torch.Tensor,  # [b, s]
+    block_tables: torch.Tensor,  # [b, max_ctx_pages] int32
+    ctx_lens: torch.Tensor,  # [b] int32
+    k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
-) -> tuple[torch.Tensor, ...]:
-    """Process a prompt chunk: returns (logits at the last valid position
-    per sequence [b, vocab] f32, k_pages, v_pages), the pools written in
-    place, with (k_scales, v_scales) appended for int8 pools. The chunk
-    attends causally within itself and to ``ctx_lens`` tokens of context
-    already in the pool. On int8 pools each layer's context pages are
-    widened to the chunk's dtype into a chunk-sized buffer, which the
-    flash-prefill kernel reads through an identity block table.
-
-    Contract (the engine's): chunk positions are consecutive from
-    ``ctx_lens`` and ``valid`` is a right-padded prefix mask; attention
-    sees only the per-row count of valid tokens."""
-    if (k_scales is None) != (v_scales is None):
-        raise ValueError("k_scales and v_scales must be passed together")
+) -> torch.Tensor:
+    """The prefill layer loop shared by ``prefill`` and the speculative
+    verify rounds of ``spec_decode_steps``: the chunk's forward with
+    paged-context attention, then one KV write for every layer. Returns
+    the hidden states [b, s, d]; the logits head stays with the caller.
+    The int8 pools' write selects the valid rows on the host; speculative
+    decoding, which must not synchronise, is refused on them."""
     quantized = k_scales is not None
     inv_freq = _inv_freq(cfg, tokens.device)
     h = _embed(params, cfg, tokens)  # [b, s, d]
@@ -636,10 +640,54 @@ def prefill(
     else:
         _scatter_kv_pages_all_layers(k_pages, torch.stack(fresh_k), page_ids, slot_ids, valid)
         _scatter_kv_pages_all_layers(v_pages, torch.stack(fresh_v), page_ids, slot_ids, valid)
-    last_idx = (n_valid.long() - 1).clamp(min=0)
+    return h
+
+
+def prefill(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [b, s] int32, right-padded
+    positions: torch.Tensor,  # [b, s] int32 absolute positions
+    valid: torch.Tensor,  # [b, s] bool, right-padded prefix mask
+    k_pages: torch.Tensor,  # [n_layers, pages, page_size, n_kv, hd]
+    v_pages: torch.Tensor,
+    page_ids: torch.Tensor,  # [b, s] destination page per token
+    slot_ids: torch.Tensor,  # [b, s] destination slot per token
+    block_tables: torch.Tensor,  # [b, max_ctx_pages] int32 — cached-context pages
+    ctx_lens: torch.Tensor,  # [b] int32 — prefix-cached context length
+    k_scales: Optional[torch.Tensor] = None,  # [n_layers, pages, n_kv] f32 (int8 pools)
+    v_scales: Optional[torch.Tensor] = None,
+    *,
+    return_all_logits: bool = False,  # [b, s, vocab] for spec-decode verify
+) -> tuple[torch.Tensor, ...]:
+    """Process a prompt chunk: returns (logits at the last valid position
+    per sequence [b, vocab] f32, k_pages, v_pages), the pools written in
+    place, with (k_scales, v_scales) appended for int8 pools. With
+    ``return_all_logits`` the logits are every chunk position's [b, s,
+    vocab] (the speculative verify round's). The chunk attends causally
+    within itself and to ``ctx_lens`` tokens of context already in the
+    pool. On int8 pools each layer's context pages are widened to the
+    chunk's dtype into a chunk-sized buffer, which the flash-prefill kernel
+    reads through an identity block table.
+
+    Contract (the engine's): chunk positions are consecutive from
+    ``ctx_lens`` and ``valid`` is a right-padded prefix mask; attention
+    sees only the per-row count of valid tokens."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    quantized = k_scales is not None
+    h = _prefill_body(
+        params, cfg, tokens, positions, valid, k_pages, v_pages, page_ids,
+        slot_ids, block_tables, ctx_lens, k_scales, v_scales,
+    )
+    extra = (k_scales, v_scales) if quantized else ()
+    if return_all_logits:
+        return (_logits(params, cfg, h), k_pages, v_pages) + extra
+    b = tokens.shape[0]
+    last_idx = (valid.sum(dim=1).long() - 1).clamp(min=0)
     h_last = h[torch.arange(b, device=h.device), last_idx]  # [b, d]
     logits = _logits(params, cfg, h_last[:, None, :])[:, 0]
-    return (logits, k_pages, v_pages) + ((k_scales, v_scales) if quantized else ())
+    return (logits, k_pages, v_pages) + extra
 
 
 def _decode_body(
@@ -759,3 +807,154 @@ def decode_steps(
         seq_lens = seq_lens + 1
     extra = (k_scales, v_scales) if k_scales is not None else ()
     return (torch.stack(toks, dim=1), k_pages, v_pages) + extra
+
+
+def spec_decode_steps(
+    params: Params,
+    cfg: LlamaConfig,
+    packed_i32: torch.Tensor,  # [b, W + table_w + 5] int32 — see below
+    fparams: torch.Tensor,  # [b, 2] f32 — (temperature, top_p) per lane
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    generator: torch.Generator,
+    *,
+    page_size: int,
+    num_rounds: int,
+    s_chunk: int,  # verify chunk width (>= spec_k + 1)
+    ngram: int,
+    spec_k: int,
+    max_scan: int,
+    table_w: int,  # block-table width inside packed_i32
+    sampled: bool,  # any lane has temperature > 0 (the caller's host data)
+) -> tuple[torch.Tensor, ...]:
+    """``num_rounds`` speculative-decode rounds with on-device
+    prompt-lookup proposals, chained through device state: the caller's
+    one fetch of the returned array is the burst's only host sync.
+
+    Each round, per lane: (1) propose — the latest earlier occurrence of
+    the window's final ``ngram`` tokens, and up to ``spec_k`` of its
+    followers, clamped by the remaining budget and the adaptive gate (the
+    engine's ``_propose_prompt_lookup``); (2) verify — one prefill-shaped
+    forward over ``[last committed token ++ drafts]`` against the paged
+    context (``_prefill_body``, every position's logits); (3) accept —
+    greedy lanes take the longest draft prefix equal to the argmax plus
+    the correction, sampled lanes run deterministic-draft speculative
+    sampling (``ops.spec_sample``); (4) commit on the device — the emitted
+    tokens join the window and ``seq_lens``/budgets advance. Rejected
+    drafts leave stale K/V beyond ``seq_lens`` in pages the lane owns.
+
+    ``packed_i32 = [window | block_tables | wlen, seq_lens, budget,
+    gate_open, top_k]``; ``window[j]`` holds the token at global position
+    ``seq_lens - wlen + j``, and the caller sizes it so that it cannot
+    overflow (``W >= wlen + num_rounds * (spec_k + 1)``) and reserves pages
+    for the worst-case growth. A lane whose budget reaches 0 keeps
+    verifying its last position and emits nothing. ``sampled`` is the
+    host's decision (the JAX function's ``lax.cond``): all-greedy bursts
+    skip the filtered distributions and draw nothing from ``generator``.
+
+    Returns ``(packed [rounds, b, spec_k + 4] int32, k_pages, v_pages)``:
+    ``packed[..., :k+1]`` the emitted tokens, then (emit_len, prop_len,
+    accepted). The pools are written in place."""
+    dev = packed_i32.device
+    W = packed_i32.shape[1] - table_w - 5
+    window = packed_i32[:, :W].clone()
+    block_tables = packed_i32[:, W : W + table_w].contiguous()
+    wlen = packed_i32[:, W + table_w]
+    seq_lens = packed_i32[:, W + table_w + 1]
+    budget = packed_i32[:, W + table_w + 2]
+    gate_open = packed_i32[:, W + table_w + 3] != 0
+    top_k = packed_i32[:, W + table_w + 4].contiguous()
+    temperature = fparams[:, 0].contiguous()
+    top_p = fparams[:, 1].contiguous()
+    b = window.shape[0]
+    n, k = ngram, spec_k
+    i32 = torch.int32
+    # window[j] is global position base + j; wlen and seq_lens advance
+    # together, so base is fixed for the burst.
+    base = seq_lens - wlen
+    j = torch.arange(W, device=dev)[None, :].expand(b, W)
+    ar_n = torch.arange(n, device=dev)[None, :]
+    ar_k = torch.arange(k, device=dev)[None, :]
+    kk = torch.arange(k + 1, device=dev)[None, :]
+    jj = torch.arange(s_chunk, device=dev, dtype=i32)[None, :]
+    zero_col = torch.zeros((b, 1), dtype=i32, device=dev)
+    pad = torch.zeros((b, s_chunk - 1 - k), dtype=i32, device=dev)
+
+    def take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return torch.gather(a, 1, idx.clamp(0, a.shape[1] - 1).long())
+
+    rounds = []
+    for _ in range(num_rounds):
+        active = seq_lens > 0
+
+        # ---- propose (prompt lookup over the window) -------------------
+        pattern = take(window, wlen[:, None] - n + ar_n)  # [b, n]
+        m = torch.ones((b, W), dtype=torch.bool, device=dev)
+        for o in range(n):
+            m = m & (take(window, j + o) == pattern[:, o : o + 1]) & (j + o < W)
+        # Host parity: start <= len - n - 1 (the terminal occurrence is
+        # excluded) and start >= len - 1 - max_scan in global positions.
+        m = m & (j + n <= wlen[:, None] - 1)
+        m = m & (j + base[:, None] >= seq_lens[:, None] - 1 - max_scan)
+        latest = torch.where(m, j, torch.full_like(j, -1)).amax(dim=1)  # [b]
+        avail = wlen - (latest + n)  # followers available (>= 1 when found)
+        # Drafts past budget - 1 can never be emitted (a round emits
+        # accepted + 1).
+        prop_len = torch.where(
+            (latest >= 0) & gate_open & active,
+            torch.minimum(avail.clamp(max=k), (budget - 1).clamp(min=0)),
+            torch.zeros_like(avail),
+        ).to(i32)
+        drafts = take(window, latest[:, None] + n + ar_k)  # [b, k], garbage past prop_len
+
+        # ---- the verify chunk ------------------------------------------
+        last_tok = take(window, (wlen - 1)[:, None])  # [b, 1]
+        chunk = torch.cat([last_tok, drafts, pad], dim=1)  # [b, s_chunk]
+        valid = (jj < (1 + prop_len)[:, None]) & active[:, None]
+        start = (seq_lens - 1).clamp(min=0).to(i32)
+        positions = start[:, None] + jj
+        page_ids = take(block_tables, positions // page_size)
+        slot_ids = positions % page_size
+        h = _prefill_body(
+            params, cfg, chunk, positions, valid, k_pages, v_pages, page_ids,
+            slot_ids, block_tables, start,
+        )
+        logits = _logits(params, cfg, h)  # [b, s_chunk, vocab] f32
+
+        # ---- accept ----------------------------------------------------
+        # logits[:, j] predict the token after chunk[:, j]: the draft
+        # under test there is chunk[:, j + 1].
+        drafts_shift = torch.cat([chunk[:, 1:], zero_col], dim=1)
+        if sampled:
+            accept, replacement, free = spec_sample(
+                logits, drafts_shift, temperature, top_k, top_p, generator
+            )
+        else:
+            greedy = torch.argmax(logits, dim=-1).to(i32)
+            accept, replacement, free = greedy == drafts_shift, greedy, greedy
+        lead = torch.cumprod(accept[:, :k].to(i32), dim=1)
+        acc = (lead * (ar_k < prop_len[:, None])).sum(dim=1).to(i32)
+        corrected = torch.where(
+            acc < prop_len, take(replacement, acc[:, None])[:, 0], take(free, acc[:, None])[:, 0]
+        )
+        drafts_pad = torch.cat([drafts, zero_col], dim=1)
+        emit = torch.where(
+            kk < acc[:, None],
+            drafts_pad,
+            torch.where(kk == acc[:, None], corrected[:, None], torch.zeros_like(drafts_pad)),
+        )  # [b, k + 1]
+        emit_len = torch.where(
+            active & (budget > 0), torch.minimum(acc + 1, budget), torch.zeros_like(acc)
+        ).to(i32)
+
+        # ---- commit on the device --------------------------------------
+        widx = (wlen[:, None] + kk).clamp(0, W - 1).long()
+        cur = torch.gather(window, 1, widx)
+        window = window.scatter(1, widx, torch.where(kk < emit_len[:, None], emit, cur))
+        wlen = wlen + emit_len
+        seq_lens = seq_lens + emit_len
+        budget = budget - emit_len
+        rounds.append(torch.cat(
+            [emit, emit_len[:, None], prop_len[:, None], acc[:, None]], dim=1
+        ))
+    return torch.stack(rounds), k_pages, v_pages

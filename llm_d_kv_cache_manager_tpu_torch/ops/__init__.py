@@ -9,7 +9,7 @@ from .paged_attention import (
     paged_decode_int8,
     plan_decode_splits,
 )
-from .sampling import sample_tokens
+from .sampling import sample_tokens, spec_sample
 from ._counting import LAUNCH_LOCK
 # Last: gmm imports models.quant, whose package imports the names above.
 from .gmm import (
@@ -34,6 +34,7 @@ __all__ = [
     "COUNTED",
     "LAUNCH_LOCK",
     "sample_tokens",
+    "spec_sample",
     "rms_norm",
     "apply_rope",
     "rope_frequencies",

@@ -27,8 +27,12 @@ demote to a peer's store, see "Remote tier" below), KV-block integrity
 (``kv_integrity``: write-time digests verified at every tier transition,
 see "Integrity" below) and the tenant classes of ``TENANT_QOS``
 (``add_request``'s ``tenant``/``priority``/``qos_weight``, priority
-preemption). Speculative decoding is not ported yet (and TP/SP are for more
-than one GPU); their config fields do not exist here.
+preemption), and speculative decoding (``spec_decode="prompt_lookup"`` and
+the ``spec_*`` knobs: prompt-lookup proposals verified by a warm prefill
+over [last token ++ drafts] through the flash-prefill kernel, with
+acceptance and ``spec_sample`` on the device, ``spec_rounds`` rounds a
+host sync; see ``_run_decode_spec``). TP/SP are for more than one GPU;
+their config fields do not exist here.
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -287,6 +291,32 @@ class EngineConfig:
     #: to pinned host memory starts right after every dispatch at every
     #: setting. Off by default = the JAX default.
     decode_fused_sampling: bool = False
+    #: speculative decoding: "off" or "prompt_lookup" (draft-model-free:
+    #: propose the continuation of the context's own last n-gram from an
+    #: earlier occurrence; one verify dispatch, a warm prefill over
+    #: [last token ++ proposals], scores all k+1 tokens). Greedy lanes
+    #: accept iff draft == argmax; temperature>0 lanes run
+    #: deterministic-draft speculative sampling (``ops.spec_sample``), exact
+    #: for each lane's filtered distribution.
+    spec_decode: str = "off"
+    #: proposed tokens per verify round (accepted 0..k, plus one corrected
+    #: or bonus token: a round never yields fewer tokens than a decode step)
+    spec_k: int = 4
+    #: n-gram length to match for prompt-lookup proposals
+    spec_ngram: int = 3
+    #: how far back the proposal search scans
+    spec_max_scan: int = 4096
+    #: verify rounds per dispatch, chained on the device (propose, verify,
+    #: accept, advance; ``llama.spec_decode_steps``) with one host sync a
+    #: burst. Higher values amortize the host's per-dispatch time, at the
+    #: cost of gate and fallback decisions lagging a burst.
+    spec_rounds: int = 1
+    #: adaptive per-sequence gate (one-way): once a sequence has had at
+    #: least spec_min_sample proposed tokens, stop proposing for it while
+    #: its acceptance rate sits below spec_min_accept, so it takes the
+    #: plain decode path instead of paying verify dispatches.
+    spec_min_accept: float = 0.4
+    spec_min_sample: int = 8
     #: host-DRAM tier admission: "auto" (the recompute-vs-restore cost model,
     #: from rates measured online, gates spills and restores) or "always"
     #: (unconditional spill and restore).
@@ -385,6 +415,19 @@ class Engine:
                     "storage mode; the paged-attention kernel has no fp8 "
                     "dequant path yet — use 'int8'"
                 )
+        if config.spec_decode not in ("off", "prompt_lookup"):
+            raise ValueError(f"unknown spec_decode {config.spec_decode!r}")
+        if config.spec_decode != "off":
+            if config.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            if config.spec_ngram < 1:
+                raise ValueError("spec_ngram must be >= 1")
+            if config.spec_rounds < 1:
+                raise ValueError("spec_rounds must be >= 1")
+            if config.kv_quant_hbm is not None:
+                # The verify rounds read pages full-width through the
+                # flash-prefill kernel: refuse rather than quietly widen.
+                raise ValueError("kv_quant_hbm is incompatible with spec_decode")
         if config.kv_quant is not None and config.kv_quant not in quant.KV_QUANT_MODES:
             raise ValueError(f"unknown kv_quant mode {config.kv_quant!r}")
         hp = config.block_manager.host_pages
@@ -451,6 +494,10 @@ class Engine:
         #: dispatch, so engine steps do not count them) and the model steps
         #: they ran (``decode_steps_per_iter`` a dispatch)
         self.decode_stats = {"dispatches": 0, "steps": 0}
+        #: speculative decoding: proposed and accepted draft tokens, verify
+        #: rounds and host-sync bursts (acceptance rate = accepted /
+        #: proposed; rounds a sync = verify_steps / bursts)
+        self.spec_stats = {"proposed": 0, "accepted": 0, "verify_steps": 0, "bursts": 0}
         self._generator = torch.Generator(device=self.device).manual_seed(
             config.seed ^ 0x5EED
         )
@@ -1699,7 +1746,7 @@ class Engine:
             # final chunk published above joins next step, and lanes its
             # page growth preempted are dropped by the decode path's
             # block_table/finish filters.
-            self._run_decode_fused(out.decode)
+            self._run_decode(out.decode)
         elif not out.prefill:
             self._drain_inflight()
         if timed:
@@ -1845,6 +1892,22 @@ class Engine:
         used = max((len(s.block_table) for s in seqs), default=1)
         bucket = max(1, self.config.decode_pages_bucket)
         return min(self.max_pages_per_seq, _round_up(used, bucket))
+
+    def _run_decode(self, seqs: list[Sequence]) -> None:
+        if self.config.spec_decode == "prompt_lookup":
+            # Commit lag: the drain can finish lanes, and a finished
+            # sequence is never reserved for or dispatched. Lanes a mixed
+            # step's prefill half preempted (empty block table) are dropped
+            # too: their proposals must not defeat the fallback below.
+            self._drain_inflight()
+            seqs = [s for s in seqs if s.block_table and not self._should_finish(s)]
+            if not seqs:
+                return
+            if self._run_decode_spec(seqs):
+                return
+            # Every lane's proposal came up empty: a verify round would emit
+            # one token at a prefill's cost, so take the plain decode step.
+        self._run_decode_fused(seqs)
 
     def _run_decode_fused(self, seqs: list[Sequence]) -> None:
         """Every decode goes through here; at k=1 it is the classic
@@ -1992,6 +2055,209 @@ class Engine:
             self._inflight = burst
         else:
             self._commit_burst(burst)
+
+    def _propose_prompt_lookup(self, seq: Sequence) -> list[int]:
+        """Draft-model-free proposals: the tokens that followed the latest
+        earlier occurrence of the context's final ``spec_ngram`` tokens,
+        within ``spec_max_scan`` of the end. Host-side; the device burst
+        recomputes the same proposal for its first round."""
+        n = self.config.spec_ngram
+        # Drafts past budget - 1 can never be emitted (a round emits
+        # accepted + 1); the device burst clamps with the same budget, so
+        # its first round proposes exactly this many.
+        k = min(self.config.spec_k, self._spec_budget(seq) - 1)
+        if k < 1:
+            return []
+        toks = seq.all_tokens
+        if len(toks) < n + 1:
+            return []
+        if not self._gate_open(seq):
+            return []  # adaptive gate: this sequence is not echoing
+        pattern = toks[-n:]
+        lo = max(0, len(toks) - 1 - self.config.spec_max_scan)
+        # The latest match wins; the terminal occurrence (start == len - n)
+        # is excluded.
+        for start in range(len(toks) - n - 1, lo - 1, -1):
+            if toks[start : start + n] == pattern:
+                return [int(t) for t in toks[start + n : start + n + k]]
+        return []
+
+    def _gate_open(self, seq: Sequence) -> bool:
+        """Adaptive spec gate (one-way, per sequence): closed once the
+        sample fills with acceptance below the threshold."""
+        return not (
+            seq.spec_proposed >= self.config.spec_min_sample
+            and seq.spec_accepted < self.config.spec_min_accept * seq.spec_proposed
+        )
+
+    def _spec_budget(self, seq: Sequence) -> int:
+        """Remaining emittable tokens (the max_new_tokens and max_model_len
+        caps): the one definition the host proposal's clamp and the device
+        burst's budget share."""
+        return max(
+            0,
+            min(
+                seq.sampling.max_new_tokens - seq.num_generated,
+                self.config.max_model_len - seq.num_tokens,
+            ),
+        )
+
+    def _run_decode_spec(self, seqs: list[Sequence]) -> bool:
+        """Speculative decode by prompt lookup, chained on the device: each
+        verify round scores the last committed token plus up to ``spec_k``
+        proposed tokens, a warm prefill over [paged context ++ chunk] with
+        every position's logits, and ``spec_rounds`` rounds run in one
+        dispatch (``llama.spec_decode_steps``), so the host syncs once a
+        burst. Greedy lanes take the longest proposal prefix equal to the
+        model's argmax plus the argmax at the first mismatch (or a bonus
+        token); sampled lanes run ``ops.spec_sample``. A round emits 1..k+1
+        tokens per lane. Returns False, having dispatched nothing, when
+        every lane's first-round proposal is empty; the caller then runs
+        the cheaper plain decode step.
+
+        The rounds run eagerly (no CUDA graph): on the card every verify
+        round launches the flash-prefill kernel once a layer. Greedy tokens
+        are the model's choices as the prefill path scores them; on the CPU
+        that equals plain greedy decode, while on the card the verify
+        (flash prefill) and decode (paged decode) kernels reduce in
+        different orders, so a near tie can resolve differently, as the JAX
+        engine says of the TPU. Sampled lanes draw from the engine's
+        generator differently from plain decode (the same distribution).
+
+        Rejected drafts leave stale K/V in slots the sequence owns beyond
+        ``num_computed``; nothing attends past ``seq_len`` and page
+        registration is bounded by ``num_computed``, so rollback is
+        bookkeeping."""
+        ps = self.page_size
+        k = self.config.spec_k
+        rounds = self.config.spec_rounds
+        # Lane-aligned verify chunk (no sequence parallelism here).
+        s_chunk = _round_up(k + 1, 8)
+        b = self.config.decode_batch_size
+        if len(seqs) > b:
+            raise RuntimeError(f"{len(seqs)} running sequences exceed {b} decode lanes")
+
+        # The device recomputes the first round's proposals; this host pass
+        # decides entry (an all-empty round costs nothing) and sizes the
+        # exact single-round reservation.
+        prop_by_id = {s.seq_id: self._propose_prompt_lookup(s) for s in seqs}
+        if not any(prop_by_id.values()):
+            return False
+
+        if rounds > 1:
+            # Multi-round bursts reserve the budget-capped worst case (later
+            # rounds' proposals are decided on the device). When that does
+            # not fit the free pool, this burst degrades to one round, whose
+            # reservation is exact, so speculation never evicts a batchmate
+            # for headroom it may not use.
+            need = 0
+            for seq in seqs:
+                worst = 1 + min(rounds * (k + 1), self._spec_budget(seq))
+                need += max(0, -(-(seq.num_tokens + worst - 1) // ps) - len(seq.block_table))
+            if need > self.block_manager.num_free:
+                rounds = 1
+
+        # Reserve before building tables (this can preempt batchmates or
+        # abort; both leave block_table empty). One round reserves the
+        # exact growth (the committed token plus its clamped proposals: the
+        # chunk's padding writes no new slot); more rounds the worst case.
+        for seq in seqs:
+            if not seq.block_table:
+                continue
+            if rounds == 1:
+                n_res = 1 + len(prop_by_id[seq.seq_id])
+            else:
+                n_res = 1 + min(rounds * (k + 1), self._spec_budget(seq))
+            self._reserve_slots_or_preempt(seq, n_res)
+        active = [s for s in seqs if s.block_table]
+        if not active:
+            return True
+
+        # Device-resident token window: the last `scan_need` committed
+        # tokens (all prompt lookup may match) plus room for the burst's
+        # growth. The int32 inputs go up as one packed array, the sampling
+        # floats as another.
+        scan_need = min(
+            self.config.spec_max_scan + self.config.spec_ngram + 1, self.config.max_model_len
+        )
+        W = scan_need + rounds * (k + 1)
+        table_w = self._decode_table_width(active)
+        packed_i32 = np.zeros((b, W + table_w + 5), np.int32)
+        fparams = np.zeros((b, 2), np.float32)
+        fparams[:, 1] = 1.0  # top_p disabled on padded lanes
+        for i, seq in enumerate(active):
+            toks = seq.all_tokens
+            n_win = min(len(toks), scan_need)
+            packed_i32[i, :n_win] = toks[-n_win:]
+            packed_i32[i, W : W + len(seq.block_table)] = seq.block_table
+            packed_i32[i, W + table_w] = n_win  # wlen
+            packed_i32[i, W + table_w + 1] = seq.num_tokens
+            packed_i32[i, W + table_w + 2] = self._spec_budget(seq)
+            packed_i32[i, W + table_w + 3] = int(self._gate_open(seq))
+            packed_i32[i, W + table_w + 4] = seq.sampling.top_k
+            fparams[i, 0] = seq.sampling.temperature
+            fparams[i, 1] = seq.sampling.top_p
+
+        self._flush_page_moves()
+        packed = llama.spec_decode_steps(
+            self.params,
+            self.model_cfg,
+            self._to_device(packed_i32),
+            self._to_device(fparams),
+            self.k_pages,
+            self.v_pages,
+            self._generator,
+            page_size=ps,
+            num_rounds=rounds,
+            s_chunk=s_chunk,
+            ngram=self.config.spec_ngram,
+            spec_k=k,
+            max_scan=self.config.spec_max_scan,
+            table_w=table_w,
+            # All-greedy bursts draw nothing from the generator, so sampled
+            # streams elsewhere in the run do not shift because a greedy
+            # lane speculated.
+            sampled=bool((fparams[:, 0] > 0).any()),
+        )[0]
+        # The one host sync of the burst: one fetch of the packed result.
+        t_fetch = time.perf_counter() if self.obs_step_timing else 0.0
+        packed = packed.cpu().numpy()  # [rounds, b, k + 4]
+        if self.obs_step_timing:
+            self.step_stats["sample_s"] += time.perf_counter() - t_fetch
+        emit = packed[..., : k + 1]
+        emit_len = packed[..., k + 1]
+        prop_len = packed[..., k + 2]
+        acc = packed[..., k + 3]
+
+        self.spec_stats["verify_steps"] += rounds
+        self.spec_stats["bursts"] += 1
+        for i, seq in enumerate(active):
+            if not seq.block_table:
+                continue  # preempted by a batchmate's post-emit append
+            for r in range(rounds):
+                if self._should_finish(seq):
+                    break  # later rounds are surplus (discarded)
+                # Stats and the gate count only rounds whose tokens are (at
+                # least partly) committed.
+                pl, ac = int(prop_len[r, i]), int(acc[r, i])
+                self.spec_stats["proposed"] += pl
+                self.spec_stats["accepted"] += ac
+                seq.spec_proposed += pl
+                seq.spec_accepted += ac
+                for j in range(int(emit_len[r, i])):
+                    if self._should_finish(seq):
+                        break
+                    seq.num_computed = seq.num_tokens
+                    seq.output_tokens.append(int(emit[r, i, j]))
+                    seq.num_generated += 1
+            # The reservation covered the burst's writes exactly; a full
+            # acceptance in the last committed round moves num_tokens past
+            # them, so the next dispatch's input slot is ensured here, as
+            # every other decode path does after it emits.
+            if not self._should_finish(seq):
+                self._append_slot_or_preempt(seq)
+            self.block_manager.register_full_pages(seq)
+        return True
 
     def _drain_inflight(self) -> None:
         if self._inflight is None:

@@ -83,9 +83,11 @@ The fleet's knob-gated glue:
   and ``/stats`` block; ``purge_bad_blocks`` for the fleet's revocations);
 - tenant QoS: ``TENANT_QOS`` (the ``X-Tenant`` header, per-tenant admission
   budgets, priority classes with preemption, weighted shares, cache-share
-  caps, and the tenant slices of the SLO recorder and the MRC).
-
-Not ported yet: speculative decoding (``SPEC_DECODE``).
+  caps, and the tenant slices of the SLO recorder and the MRC);
+- speculative decoding: ``SPEC_DECODE=prompt_lookup``, ``SPEC_K``,
+  ``SPEC_NGRAM``, ``SPEC_ROUNDS``, ``SPEC_MIN_ACCEPT``, ``SPEC_MIN_SAMPLE``
+  and ``SPEC_MAX_SCAN`` (the engine's ``spec_*`` fields), mirrored into the
+  four ``tpu_pod_spec_*`` counters every step.
 
 Run: ``python -m llm_d_kv_cache_manager_tpu_torch.server.serve`` (needs
 aiohttp, and pyzmq for publishing; prometheus_client for ``/metrics``).
@@ -197,8 +199,7 @@ class _ServingMetrics:
         knobs-off JAX pod's.
 
         Every family the JAX pod registers under these flags is registered
-        here, so the exposition lists the same families. The speculative-
-        decoding counters stay at zero."""
+        here, so the exposition lists the same families."""
         # Measured serving rates (EMAs over request completions), kept
         # OUTSIDE the prometheus guard: admission control derives its
         # Retry-After hint from them, with or without prometheus_client.
@@ -263,6 +264,7 @@ class _ServingMetrics:
             "verify_steps/bursts)",
             registry=self.registry,
         )
+        self._spec_seen = {"proposed": 0, "accepted": 0, "verify_steps": 0, "bursts": 0}
         # Overload protection / request lifecycle: admission sheds,
         # deadline expiries, aborts, drain activity.
         self.admission_rejected = prom.Counter(
@@ -694,6 +696,21 @@ class _ServingMetrics:
                 else:
                     self.req_itl.labels(**lab).observe(seq.mean_itl)
 
+    def sync_spec_stats(self, stats: dict) -> None:
+        """Mirror the engine's monotone spec counters into Prometheus."""
+        if self._prom is None:
+            return
+        for key, counter in (
+            ("proposed", self.spec_proposed),
+            ("accepted", self.spec_accepted),
+            ("verify_steps", self.spec_verify),
+            ("bursts", self.spec_bursts),
+        ):
+            delta = stats.get(key, 0) - self._spec_seen[key]
+            if delta > 0:
+                counter.inc(delta)
+                self._spec_seen[key] = stats[key]
+
     def sync_lifecycle_stats(self, stats: dict) -> None:
         """Mirror the engine's monotone lifecycle counters (deadline sheds/
         expiries, aborts) into Prometheus."""
@@ -1077,6 +1094,16 @@ class PodServerConfig:
         # Device-resident decode fast path: last-token ids stay on the
         # device across steps at any burst width. Off = the JAX default.
         eng.decode_fused_sampling = _env_bool("DECODE_FUSED_SAMPLING", "0")
+        # Speculative decoding ("off" | "prompt_lookup") and its knobs.
+        eng.spec_decode = os.environ.get("SPEC_DECODE", eng.spec_decode)
+        eng.spec_k = int(os.environ.get("SPEC_K", eng.spec_k))
+        eng.spec_ngram = int(os.environ.get("SPEC_NGRAM", eng.spec_ngram))
+        # Verify rounds a dispatch, chained on the device.
+        eng.spec_rounds = int(os.environ.get("SPEC_ROUNDS", eng.spec_rounds))
+        # The adaptive gate (SPEC_MIN_ACCEPT=0 disables it).
+        eng.spec_min_accept = float(os.environ.get("SPEC_MIN_ACCEPT", eng.spec_min_accept))
+        eng.spec_min_sample = int(os.environ.get("SPEC_MIN_SAMPLE", eng.spec_min_sample))
+        eng.spec_max_scan = int(os.environ.get("SPEC_MAX_SCAN", eng.spec_max_scan))
         # Weight quantization ("int8" halves weight bytes; models/quant.py).
         eng.quantize = os.environ.get("QUANTIZE") or None
         # int8 KV pages in device memory (twice the pages per byte).
@@ -1966,6 +1993,7 @@ class PodServer:
                         self.transfer_cost_model.seed_rates(
                             prefill_tokens_s=self.engine._prefill_rate
                         )
+                    self.metrics.sync_spec_stats(self.engine.spec_stats)
                     self.metrics.sync_lifecycle_stats(self.engine.lifecycle_stats)
                     if self.integrity is not None:
                         istats = self.integrity.stats

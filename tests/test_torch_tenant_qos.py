@@ -217,6 +217,48 @@ def test_priority_preemption_with_a_pipelined_burst_in_flight():
     assert eng.block_manager.num_free == eng.config.block_manager.total_pages - 1
 
 
+def test_burst_in_flight_finishing_the_victim_leaves_it_unfolded():
+    """Premium arrives while a pipelined burst of 4 in flight holds the
+    victim's last tokens: committing the burst finishes the victim, which
+    then leaves with exactly ``max_new_tokens`` tokens (a fold would have
+    re-prefilled it and sampled past its cap); the batchmate preempted
+    instead keeps the greedy stream of a QoS-off run."""
+    jp, tp = shared_params()
+    knobs = dict(total_pages=10, decode_steps_per_iter=4, decode_pipeline=True)
+    prompts = [prompt(52, 8), prompt(53, 8)]
+    caps = [12, 5]  # the second batch request ends inside the first burst
+
+    def run(with_premium):
+        eng = TEngine(engine_config(True, **knobs), params=tp, device="cpu")
+        if with_premium:
+            eng.scheduler.attach_qos()
+            eng.block_manager.attach_qos(TenantQoS(parse_tenant_qos(TWO_CLASS)))
+        batch = [eng.add_request(p, sampling(T, max_new_tokens=m), tenant="batch", priority=1)
+                 for p, m in zip(prompts, caps)]
+        while eng._inflight is None:
+            eng.step()
+        prem, finished = None, []
+        if with_premium:
+            victim = batch[1]  # the most recently admitted of the lower class
+            assert any(s is victim for s in eng._inflight["active"])
+            assert victim.num_generated + 4 >= caps[1]
+            prem = eng.add_request(prompt(54, 28), sampling(T, max_new_tokens=4),
+                                   tenant="premium", priority=0)
+            assert not eng.block_manager.can_allocate(prem)
+            finished = eng.step()
+            assert victim in finished
+            assert eng.lifecycle_stats.get("priority_preempted", 0) == 0
+        eng.run_until_complete()
+        return batch, prem, eng
+
+    alone, _, _ = run(False)
+    batch, prem, eng = run(True)
+    assert batch[1].num_generated == caps[1] and len(batch[1].generated_tokens) == caps[1]
+    assert [s.generated_tokens for s in batch] == [s.generated_tokens for s in alone]
+    assert all(s.error is None for s in batch) and prem.num_generated == 4
+    assert eng.block_manager.num_free == eng.config.block_manager.total_pages - 1
+
+
 # -- TestPreemptShedInterplay -------------------------------------------------------
 def test_preempted_then_expired_sequence_shed_once():
     (bg, prem), stats = _preemption_run(
