@@ -45,7 +45,14 @@ The ``spec_decode`` phase serves eight
 verify rounds a burst, holding the K1/K2 launch counts and every stream
 against spec-off, and profiles a verify round against a decode step.
 The int8 KV path also holds both int8 scale divisions on the card
-bit-equal to the CPU.
+bit-equal to the CPU. Last, the ``qwen3_30b_a3b_train`` phase trains
+Qwen3-30B-A3B at full width and 2 of its 48 layers: HF-named weights load
+back bit-equal, one step's gradients through the kernels (K4 forward, K4^T
+and K6 backward, each also held against its plain version at the training
+shapes) are held against the plain grouped matmul's with routing pinned,
+five AdamW steps lower the loss with exact launch counts, a train-state
+checkpoint round trip is bit-equal, and the restored weights serve the
+same greedy tokens as the in-memory ones.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -67,8 +74,10 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import types
 import time
 
@@ -96,7 +105,8 @@ PEAK_BF16_FLOPS = 989e12
 #: not specified to round to nearest (it may truncate), so each of the
 #: d - 1 additions (and K5's scale multiply) may lose one float32 ulp,
 #: 2^-23, of the running sum: they may also lose d 2^-23 ref_abs, where
-#: ref_abs = |lhs| @ |rhs[g]| (dequantized for K5).
+#: ref_abs = |lhs| @ |rhs[g]| (dequantized for K5). The same holds for the
+#: backward's two: K4^T sums f products a row, K6 a group's rows.
 HALF_ULP = 2.0**-8
 F32_ULP = 2.0**-23
 KERNEL_ATOL = 1e-4
@@ -106,6 +116,8 @@ TOL = {
     "flash_prefill": "2^-8*|ref| + 2^-8*ref_abs + 1e-4 (ref in float32)",
     "grouped_matmul_bf16": "2^-8*|ref| + d*2^-23*ref_abs + 1e-4 (ref in float32)",
     "grouped_matmul_int8": "2^-8*|ref| + d*2^-23*ref_abs + 1e-4 (ref in float32, dequantized)",
+    "grouped_matmul_bf16_t": "2^-8*|ref| + f*2^-23*ref_abs + 1e-4 (ref in float32)",
+    "grouped_matmul_tgmm": "2^-8*|ref| + (max group rows)*2^-23*ref_abs + 1e-4 (ref in float32)",
 }
 SEED = 0
 
@@ -541,8 +553,10 @@ def gmm_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
 
 
 def grouped_mm_library_ms(lhs, rhs, gs):
-    """One PyTorch call computing K4's function, where the installed torch
-    has one (``torch._grouped_mm``, rows split by cumulative offsets); the
+    """One PyTorch call computing a grouped matmul's function, where the
+    installed torch has one (``torch._grouped_mm``, the rows split by
+    cumulative offsets: K4's and K4^T's 2-D by 3-D form, and K6's 2-D by
+    2-D form with ``lhs`` the transposed rows, a [groups, d, f] result); the
     port never calls it. Returns (ms, why there is none)."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
@@ -712,6 +726,126 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
     return results
 
 
+#: the training phase's batch: 2 x 1024 tokens at top-8, 16,384 expert rows
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024
+#: K4^T / K6 forms: the training path's routing, and decode / edge / ragged
+#: from ``gmm_group_sizes`` (64 rows over 128 groups; empty groups, one
+#: large group, rows past the last group); all held, the first also timed
+GMM_BWD_FORMS = ("train", "decode", "edge", "ragged")
+
+
+def gmm_bwd_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
+    """Rows per expert and the row count: "train" routes the training
+    batch's 2,048 tokens by top-8 of random router logits (16,384 rows, all
+    in groups, as ``_moe_mlp_routed`` routes them); the others as in
+    ``gmm_group_sizes``."""
+    if form != "train":
+        return gmm_group_sizes(form, gen, dev)
+    logits = torch.randn((TRAIN_BATCH * TRAIN_SEQ, MOE_E), generator=gen, device=dev)
+    sizes = torch.bincount(logits.topk(MOE_TOPK, dim=-1).indices.reshape(-1), minlength=MOE_E)
+    return sizes.tolist(), TRAIN_BATCH * TRAIN_SEQ * MOE_TOPK
+
+
+def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
+    """K4^T (``dlhs = dout @ rhs[g]^T``) and K6 (``drhs[g] = lhs[rows_g]^T @
+    dout[rows_g]``), the backward of K4 that training runs, at Qwen3-30B-A3B
+    widths, gate/up (d, f) = (2048, 768) and down (768, 2048), in every
+    ``GMM_BWD_FORMS`` form: each held element by element against its
+    float32 plain version, called twice and required bit-equal; K4^T's rows
+    past the last group must be zero. The "train" form is timed with the L2
+    flushed before each call, beside the plain version, the library call
+    (``torch._grouped_mm``, where it takes the operands)."""
+    bf = torch.bfloat16
+    results = {"grouped_matmul_bf16_t": {}, "grouped_matmul_tgmm": {}}
+    for width, (d, f) in GMM_WIDTHS.items():
+        rhs = (torch.randn((MOE_E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
+        for form in GMM_BWD_FORMS:
+            sizes, rows = gmm_bwd_group_sizes(form, gen, dev)
+            in_groups, nonempty, max_group = sum(sizes), sum(1 for n in sizes if n > 0), max(sizes)
+            gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            lhs = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+            dout = torch.randn((rows, f), generator=gen, device=dev).to(bf)
+            calls = {
+                "grouped_matmul_bf16_t": (lambda: ops.grouped_matmul_bf16_t(dout, rhs, gs)),
+                "grouped_matmul_tgmm": (lambda: ops.grouped_matmul_tgmm(lhs, dout, gs)),
+            }
+            plains = {
+                "grouped_matmul_bf16_t": (lambda a, b, w: ops.grouped_matmul_plain(b, w.transpose(1, 2), gs)),
+                "grouped_matmul_tgmm": (lambda a, b, w: ops.grouped_matmul_tgmm_plain(a, b, gs, torch.float32)),
+            }
+            for name, call in calls.items():
+                out = call()
+                ref = plains[name](lhs.float(), dout.float(), rhs.float())
+                ref_abs = plains[name](lhs.float().abs(), dout.float().abs(), rhs.float().abs())
+                torch.cuda.synchronize()
+                if not torch.isfinite(out.float()).all():
+                    fail(f"{name} produced non-finite values ({form}/{width})")
+                if name == "grouped_matmul_bf16_t" and (out[in_groups:] != 0).any():
+                    fail(f"{name}: rows past the last group are not zero ({form}/{width})")
+                coef = (f if name == "grouped_matmul_bf16_t" else max_group) * F32_ULP
+                case = held(out, ref, ref_abs, abs_coef=coef)
+                if not (call() == out).all():
+                    fail(f"{name}: two calls on the same inputs differ ({form}/{width})")
+                del ref, ref_abs, out
+                entry = dict(case, rows=rows, in_groups=in_groups, d=d, f=f,
+                             nonempty_groups=nonempty, max_group=max_group,
+                             plan=getattr(ops, name).last_plan)
+                results[name][f"{form}/{width}"] = entry
+                if form != "train":
+                    continue
+                ms = cold_time_ms(call)
+                plain_ms = cuda_time_ms(lambda: plains[name](lhs, dout, rhs), iters=3, warmup=1)
+                if name == "grouped_matmul_bf16_t":
+                    library_ms, library_note = grouped_mm_library_ms(dout, rhs.transpose(1, 2), gs)
+                    n_bytes = rows * f * 2 + nonempty * d * f * 2 + rows * d * 2 + MOE_E * 4
+                else:
+                    library_ms, library_note = grouped_mm_library_ms(lhs.t(), dout, gs)
+                    # the whole stack is written, empty groups' zeros too
+                    n_bytes = rows * d * 2 + rows * f * 2 + MOE_E * d * f * 2 + MOE_E * 4
+                b_ms, b_by = bound_ms(n_bytes, 2 * in_groups * d * f)
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, library_note=library_note)
+            del lhs, dout
+        del rhs
+        free_cuda()
+    entries = []
+    for name, forms in results.items():
+        worst = max(c["err_over_allowance"] for c in forms.values())
+        if worst > 1:
+            fail(f"{name} differs from its plain version beyond {TOL[name]}: {forms}")
+        top = forms["train/gate_up"]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("llm_d_kv_cache_manager_tpu_torch/csrc/grouped_matmul.cu"
+                       if name.endswith("_t") else
+                       "llm_d_kv_cache_manager_tpu_torch/csrc/grouped_matmul_tgmm.cu"),
+            "design": ("K4's prefill kernel, B read K-major from rhs in place (route (a))"
+                       if name.endswith("_t") else "mma.sync, one block per (64x64 tile, group)"),
+            "timing": "L2 flushed before each call",
+            "replaces": ("jax/experimental/pallas/ops/tpu/megablox/ops.py:79 "
+                         "(gmm transpose_rhs=True, pallas_call megablox/gmm.py:526), via "
+                         "llm_d_kv_cache_manager_tpu/ops/gmm.py:115"
+                         if name.endswith("_t") else
+                         "jax/experimental/pallas/ops/tpu/megablox/ops.py:90 "
+                         "(tgmm, pallas_call megablox/gmm.py:763), via "
+                         "llm_d_kv_cache_manager_tpu/ops/gmm.py:115"),
+            "max_abs_err": max(c["max_abs_err"] for c in forms.values()),
+            "err_over_allowance": worst,
+            "tol": TOL[name],
+            "ms": top["ms"],
+            "kernel_ms": top["ms"],
+            "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "library_note": top["library_note"],
+            "headline_form": "train/gate_up",
+            "forms": forms,
+        })
+    return entries
+
+
 # -- the serving paths at full width ------------------------------------------
 #: Each path is driven once, at full width and depth, with every launch
 #: count set to 0 just before it and read just after. The pod serves
@@ -739,8 +873,10 @@ TRACED = {
     "paged_decode": ("::split_decode_kernel<__nv_bfloat16",),
     "paged_decode_int8": ("::split_decode_kernel<signed char",),
     "flash_prefill": ("flash_prefill_kernel",),
-    "grouped_matmul_bf16": ("::decode_kernel<__nv_bfloat16", "::prefill_kernel<__nv_bfloat16"),
+    "grouped_matmul_bf16": ("::decode_kernel<__nv_bfloat16", "::prefill_kernel<__nv_bfloat16, false"),
     "grouped_matmul_int8": ("::decode_kernel<signed char", "::prefill_kernel<signed char"),
+    "grouped_matmul_bf16_t": ("::prefill_kernel<__nv_bfloat16, true",),
+    "grouped_matmul_tgmm": ("tgmm_kernel",),
 }
 
 
@@ -755,7 +891,8 @@ def expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches: int,
     n = cfg.n_layers
     decode = "paged_decode_int8" if kv_quant_hbm else "paged_decode"
     out = {"paged_decode": 0, "paged_decode_int8": 0, "flash_prefill": n * prefill_dispatches,
-           "grouped_matmul_bf16": 0, "grouped_matmul_int8": 0}
+           "grouped_matmul_bf16": 0, "grouped_matmul_int8": 0,
+           "grouped_matmul_bf16_t": 0, "grouped_matmul_tgmm": 0}
     out[decode] = n * decode_steps
     if cfg.n_experts:
         gmm = "grouped_matmul_int8" if quantize else "grouped_matmul_bf16"
@@ -3915,17 +4052,13 @@ def profile_window(step, steps: int, model_steps: int, counted: dict) -> dict:
             us = getattr(e, "self_cuda_time_total", 0)
         return us / 1e3 / steps
 
-    # Device-side kernel entries only (operator entries repeat their time).
-    kernels = sorted(
-        (
-            e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and dev_ms(e) > 0
-        ),
-        key=dev_ms,
-        reverse=True,
-    )
+    # Device-side kernel entries only (operator entries repeat their time;
+    # a user annotation such as ``Optimizer.step#AdamW.step`` spans the
+    # kernels it encloses).
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    kernels = sorted((e for e in device if dev_ms(e) > 0), key=dev_ms, reverse=True)
     busy_ms = sum(dev_ms(e) for e in kernels)
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
     def traced_calls(patterns) -> int:
         return sum(e.count for e in device if any(p in e.key for p in patterns))
@@ -4569,6 +4702,269 @@ def spec_decode(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
     }, launches_sum
 
 
+# -- training through the routed MoE -------------------------------------------
+#: Qwen3-30B-A3B at full width, cut to 2 of its 48 layers (param, grad and
+#: AdamW's two moments in bf16 are 8 bytes a parameter: 15 GB at 2 layers,
+#: ~240 GB at 48); 5 AdamW steps at JAX's default lr on one batch
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_LR = 2, 5, 1e-4
+#: the kernels a training step launches (K4, K4^T, K6)
+TRAIN_KERNELS = ("grouped_matmul_bf16", "grouped_matmul_bf16_t", "grouped_matmul_tgmm")
+#: per-leaf relative error (L2) between one step's gradients through the
+#: kernels and through the plain grouped matmul (``moe_gmm="xla"``), with
+#: the plain pass's routing pinned to the kernel pass's: K4 and the plain
+#: version round their bf16 outputs alike up to a last bit, and the
+#: backward rounds to bf16 at every step; 2^-6 is four bf16 half-ulps.
+#: Unpinned, a last-bit change in the second layer's bf16 router logits
+#: flips near-tied top-8 choices, and a flipped token's gradient changes
+#: wholesale (the first card run read 0.022-0.061 a leaf that way); that
+#: reading is reported with no bar.
+GRAD_REL_BAR = 2.0**-6
+#: the losses of the two: within bf16 rounding of the loss
+LOSS_REL_BAR = 2.0**-8
+
+
+class Qwen3MoeConfig:
+    """A stand-in for transformers' ``Qwen3MoeConfig`` (the card's machine
+    has no transformers): Qwen/Qwen3-30B-A3B's published config.json fields
+    that ``config_from_hf`` reads, under the class name it dispatches on."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+
+QWEN3_30B_A3B_HF = dict(
+    vocab_size=151_936, hidden_size=2048, intermediate_size=6144, num_hidden_layers=48,
+    num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1_000_000.0,
+    rope_scaling=None, rms_norm_eps=1e-6, attention_bias=False, tie_word_embeddings=False,
+    num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768, norm_topk_prob=True,
+    hidden_act="silu", decoder_sparse_step=1, mlp_only_layers=[],
+)
+
+
+def hf_state_dict(params, cfg) -> dict:
+    """The HF-named state dict of ``params`` (``[out, in]`` views, no
+    copies; Qwen3-MoE's per-expert names)."""
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = layer["attn_norm"]
+        sd[p + "post_attention_layernorm.weight"] = layer["mlp_norm"]
+        for key, name in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
+            sd[f"{p}self_attn.{name}.weight"] = layer[key].T
+        sd[p + "self_attn.q_norm.weight"] = layer["q_norm"]
+        sd[p + "self_attn.k_norm.weight"] = layer["k_norm"]
+        sd[p + "mlp.gate.weight"] = layer["router"].T
+        for key, name in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+            for j in range(cfg.n_experts):
+                sd[f"{p}mlp.experts.{j}.{name}.weight"] = layer[key][j].T
+    return sd
+
+
+def leaves_equal(a, b) -> bool:
+    from llm_d_kv_cache_manager_tpu_torch.parallel.train import param_leaves
+
+    la, lb = param_leaves(a), param_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.detach(), y.detach())
+        for x, y in zip(la, lb))
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The names of a parameter tree's leaves, in ``param_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def grads_of(train, params, cfg, tokens) -> tuple[float, list]:
+    """One forward and backward (no optimizer step): the loss and every
+    leaf's gradient, in ``param_leaves`` order."""
+    leaves = train.param_leaves(params)
+    for p in leaves:
+        p.grad = None
+    loss = train.loss_fn(params, cfg, tokens)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def rel_errors(a: list, b: list) -> list[float]:
+    return [float((x.detach().float() - y.detach().float()).norm()
+                  / y.detach().float().norm().clamp_min(1e-30)) for x, y in zip(a, b)]
+
+
+def checkpoint_dir(need_bytes: int) -> str:
+    """A directory with room for the checkpoints: the process's temporary
+    directory, else the checkout's ignored ``build/``; fails when neither
+    has ``need_bytes`` free (with a quarter to spare)."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    free = {}
+    for root in (tempfile.gettempdir(), build):
+        free[root] = shutil.disk_usage(root).free
+        if free[root] >= need_bytes * 1.25:
+            return tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=root)
+    fail(f"no directory has {need_bytes / 1e9:.1f} GB free for the checkpoints: {free}")
+
+
+def serve_tokens(server, params, cfg, dev, prompts, new_tokens: int) -> list:
+    eng = server.Engine(
+        server.EngineConfig(model=cfg, block_manager=server.BlockManagerConfig(
+            total_pages=256, page_size=16), max_model_len=1024, decode_batch_size=8, seed=SEED),
+        params=params, device=dev)
+    seqs = [eng.add_request(p, server.SamplingParams(max_new_tokens=new_tokens)) for p in prompts]
+    eng.run_until_complete()
+    out = [list(s.generated_tokens) for s in seqs]
+    del eng
+    free_cuda()
+    return out
+
+
+def train_phase(pkg, ops, dev, card: str) -> tuple[dict, dict]:
+    """Qwen3-30B-A3B at full width and ``TRAIN_LAYERS`` layers, trained on
+    the card: HF loading held bit-equal, one step's gradients through the
+    kernels held against the plain grouped matmul's, ``TRAIN_STEPS`` AdamW
+    steps with exact launch counts (the path's main run: 3 K4, 3 K4^T and 3
+    K6 a layer a step, nothing else counted), a falling loss, a train-state
+    checkpoint round trip (bit-equal, and the next step from either state
+    alike), and the trained weights, restored from a params checkpoint,
+    served with the same greedy tokens as the in-memory ones."""
+    from llm_d_kv_cache_manager_tpu_torch import parallel
+    from llm_d_kv_cache_manager_tpu_torch.parallel import train
+
+    models, server = pkg["models"], pkg["server"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(models.QWEN3_30B_A3B, n_layers=TRAIN_LAYERS)
+    out = {"phase": "train", "model": "qwen3_30b_a3b_train", "card": card,
+           "reduced": {"n_layers": f"{TRAIN_LAYERS} of 48"},
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR}
+
+    # 1. HF loading: an HF-named state dict of init_params' weights loads
+    # back bit-equal, and the published config gives back the preset.
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    hf_cfg = models.config_from_hf(Qwen3MoeConfig(**QWEN3_30B_A3B_HF))
+    if hf_cfg != models.QWEN3_30B_A3B:
+        fail(f"config_from_hf gave {hf_cfg}, not the QWEN3_30B_A3B preset")
+    loaded = models.load_hf_state_dict(hf_state_dict(params, cfg), cfg, device=dev)
+    if not leaves_equal(loaded, params):
+        fail("load_hf_state_dict did not give back init_params' weights bit for bit")
+    del loaded
+    free_cuda()
+    out["hf_load"] = {"bit_equal": True, "config_equal": True, "s": time.perf_counter() - t0}
+    out["param_count"] = sum(p.numel() for p in train.param_leaves(params))
+
+    # 3. Gradients through the kernels against the plain grouped matmul.
+    train.trainable(params)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+    plain_cfg = dataclasses.replace(cfg, moe_gmm="xla")
+    with moe_routing(pkg["llama"]) as routing:
+        loss_k, grads_k = grads_of(train, params, cfg, tokens)
+    with moe_routing(pkg["llama"], pinned=[ids for ids, _ in routing]):
+        loss_x, grads_x = grads_of(train, params, plain_cfg, tokens)
+    errs = rel_errors(grads_k, grads_x)
+    del grads_x
+    with moe_routing(pkg["llama"]) as routing_u:
+        loss_u, grads_u = grads_of(train, params, plain_cfg, tokens)
+    errs_u = rel_errors(grads_k, grads_u)
+    flips, _ = routing_flips(routing, routing_u)
+    del grads_k, grads_u, routing, routing_u
+    free_cuda()
+    names = leaf_names(params)
+    out["grad_hold"] = {"loss_kernels": loss_k, "loss_plain": loss_x, "max_rel_err": max(errs),
+                        "bar": GRAD_REL_BAR, "loss_bar": LOSS_REL_BAR,
+                        "worst_leaf": names[int(np.argmax(errs))], "routing": "pinned",
+                        "unpinned": {"loss_plain": loss_u, "max_rel_err": max(errs_u),
+                                     "worst_leaf": names[int(np.argmax(errs_u))],
+                                     "tokens_flipped_by_layer": flips.sum(dim=1).tolist()}}
+    if not all(np.isfinite(errs)) or max(errs) > GRAD_REL_BAR:
+        fail(f"train: gradients through the kernels differ from the plain ones: {errs}")
+    if abs(loss_k - loss_x) > LOSS_REL_BAR * abs(loss_x):
+        fail(f"train: loss {loss_k} through the kernels vs {loss_x} plain")
+
+    # 4./5. The main path: TRAIN_STEPS AdamW steps, counts zeroed just
+    # before and read just after.
+    state = train.TrainState(params, train.make_optimizer(params, TRAIN_LR), 0)
+    losses, step_s = [], []
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = train.train_step(state, cfg, tokens, TRAIN_LR)
+        losses.append(float(loss))  # syncs
+        step_s.append(time.perf_counter() - t)
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = dict.fromkeys(ops.COUNTED, 0)
+    for name in TRAIN_KERNELS:
+        expected[name] = 3 * cfg.n_layers * TRAIN_STEPS
+    if launches != expected:
+        fail(f"train: kernel launches {launches} != expected {expected}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite and falling")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    out.update(losses=losses, step_s=step_s, step_ms=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), launches=launches)
+    out["profile"] = profile_window(lambda: train.train_step(state, cfg, tokens, TRAIN_LR), 1, 1,
+                                    ops.COUNTED)
+    state = state._replace(step=state.step + 2)  # the profile's two steps
+    out["peak_mem_gib_training"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # 6. Checkpoint round trip; 7. serve the trained weights.
+    n_bytes = out["param_count"] * 2 * 4  # params, the params file, two moments
+    ckpt = checkpoint_dir(n_bytes)
+    try:
+        disk_free = shutil.disk_usage(ckpt).free
+        t = time.perf_counter()
+        parallel.save_train_state(os.path.join(ckpt, "train.pt"), state)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored = parallel.load_train_state(os.path.join(ckpt, "train.pt"), cfg, TRAIN_LR, device=dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t
+        file_gb = os.path.getsize(os.path.join(ckpt, "train.pt")) / 1e9
+        moments_equal = all(
+            all(torch.equal(state.optimizer.state[p][k], restored.optimizer.state[q][k])
+                for k in ("step", "exp_avg", "exp_avg_sq"))
+            for p, q in zip(train.param_leaves(state.params), train.param_leaves(restored.params)))
+        if not (leaves_equal(state.params, restored.params) and moments_equal
+                and restored.step == state.step):
+            fail("train: the restored train state is not bit-equal to the saved one")
+        parallel.save_params(os.path.join(ckpt, "params.pt"), state.params)
+        served = parallel.load_params(os.path.join(ckpt, "params.pt"), cfg, device=dev)
+        prompts = [rng.integers(0, cfg.vocab_size, 64).tolist() for _ in range(2)]
+        tokens_restored = serve_tokens(server, served, cfg, dev, prompts, 8)
+        tokens_memory = serve_tokens(server, train.detached(state.params), cfg, dev, prompts, 8)
+        if tokens_restored != tokens_memory:
+            fail(f"train: restored weights serve {tokens_restored}, in-memory {tokens_memory}")
+        del served
+        state, loss_a = train.train_step(state, cfg, tokens, TRAIN_LR)
+        restored, loss_b = train.train_step(restored, cfg, tokens, TRAIN_LR)
+        resume_errs = rel_errors(train.param_leaves(restored.params), train.param_leaves(state.params))
+        if max(resume_errs) > GRAD_REL_BAR or abs(float(loss_a) - float(loss_b)) > LOSS_REL_BAR * abs(float(loss_a)):
+            fail(f"train: a step from the restored state differs: losses {float(loss_a)} / "
+                 f"{float(loss_b)}, params rel err {max(resume_errs)}")
+        out["checkpoint"] = {"dir_free_gb": disk_free / 1e9, "train_state_gb": file_gb,
+                             "write_s": write_s, "read_s": read_s, "bit_equal": True,
+                             "next_step_losses": [float(loss_a), float(loss_b)],
+                             "next_step_params_max_rel_err": max(resume_errs)}
+        out["served"] = {"requests": len(prompts), "new_tokens_each": 8, "tokens_equal": True,
+                         "tokens": tokens_restored}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state, restored, params
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out, {"qwen3_30b_a3b_train": launches}
+
+
 def attention_checks(ops, models, llama, dev, gen) -> list[dict]:
     """K1, K1q and K2 in every form, at Llama-3.1-8B's attention (32 query
     heads over 8 KV heads) and, under ``group8``, at Qwen3-30B-A3B's (over 4
@@ -4655,12 +5051,16 @@ def main() -> None:
         if not any(n for f in sass["flash_prefill"].values() for n in f.values()):
             fail("cuobjdump -sass shows no HMMA/HGMMA in the flash_prefill library")
         gmm_prefill = [f for name, f in sass["grouped_matmul"].items() if "prefill_kernel" in name]
-        if len(gmm_prefill) != 2 or not all(f["HGMMA"] for f in gmm_prefill):
+        if len(gmm_prefill) != 3 or not all(f["HGMMA"] for f in gmm_prefill):
             fail(f"cuobjdump -sass shows no HGMMA in a grouped-matmul prefill kernel: {sass['grouped_matmul']}")
+        tgmm = [f for name, f in sass["grouped_matmul_tgmm"].items() if "tgmm_kernel" in name]
+        if len(tgmm) != 1 or not tgmm[0]["HMMA"]:
+            fail(f"cuobjdump -sass shows no HMMA in the tgmm kernel: {sass['grouped_matmul_tgmm']}")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    kernels = attention_checks(ops, models, llama, dev, gen) + check_grouped_matmul(ops, models, dev, gen)
+    kernels = (attention_checks(ops, models, llama, dev, gen) + check_grouped_matmul(ops, models, dev, gen)
+               + check_grouped_matmul_backward(ops, dev, gen))
     _L2_FLUSH.clear()  # the serving paths' peak memory does not hold it
     emit({"phase": "kernels", "allow_tf32": False, "cudnn_allow_tf32": False,
           "results": kernels, "seconds": time.perf_counter() - t0})
@@ -4675,6 +5075,13 @@ def main() -> None:
     for path in PATHS:
         by_path.update(run_engine(pkg, ops, dev, card, path, greedy_tokens))
         free_cuda()
+    result, launches = train_phase(pkg, ops, dev, card)
+    by_path.update(launches)
+    result["kernel_ms"] = {k["name"]: {key: k[key] for key in ("headline_form", "ms", "bound_ms",
+                                                               "plain_ms", "library_ms")}
+                           for k in kernels if k["name"] in TRAIN_KERNELS}
+    emit(result)
+    free_cuda()
     for k in kernels:
         k["launches_by_path"] = {label: launches[k["name"]] for label, launches in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -2,6 +2,7 @@
 //
 //   out[r, :] = lhs[r, :] @ rhs[g(r)]          (bf16 experts, K4)
 //   out[r, :] = (lhs[r, :] @ q[g(r)]) * scale[g(r), 0, :]   (int8 experts, K5)
+//   out[r, :] = lhs[r, :] @ rhs[g(r)]^T        (bf16, K4^T: K4's input gradient)
 //
 // over rows sorted by expert: group g owns the rows
 // [sum(group_sizes[:g]), sum(group_sizes[:g + 1])), negative sizes counting
@@ -14,6 +15,9 @@
 // Replaces:
 //   K4  llm_d_kv_cache_manager_tpu/ops/gmm.py:115 _gmm_library (megablox gmm)
 //   K5  llm_d_kv_cache_manager_tpu/ops/gmm.py:149 _int8_gmm_kernel (via _gmm_int8)
+//   K4^T megablox gmm(transpose_rhs=True) (jax/experimental/pallas/ops/tpu/
+//        megablox/ops.py:79-88, pallas_call megablox/gmm.py:526), the input
+//        gradient in the backward of K4's custom_vjp
 //
 // What bounds them on this card, at Qwen3-30B-A3B widths (d, f) =
 // (2048, 768) and (768, 2048), 128 experts, top-8:
@@ -42,7 +46,10 @@
 //     zero fill, rows of the next group are computed and not stored), B =
 //     64 k x 256 n of the expert through a 3-D map over [E, d, f] (n
 //     contiguous: MN-major, wgmma's transposed B). Full and empty mbarriers
-//     per stage.
+//     per stage. K4^T reads the same [E, d, f] stack as its B = rhs[g]^T
+//     in place: 256 n x 64 k through a 3-D map with k (f) innermost, the
+//     A tile's K-major 128B-swizzled layout, and wgmma's B untransposed;
+//     it always takes this path, whatever the rows.
 //   * Two consumer warpgroups (setmaxnreg up to 232) each run
 //     wgmma.m64n256k16 (bf16 in, f32 accumulate in registers) on 64 of the
 //     tile's rows, one k tile in flight behind the one being issued, and
@@ -228,7 +235,7 @@ __device__ __forceinline__ void i8x16_to_bf16(const uint4& c, uint4& lo, uint4& 
   i8x4_to_bf16(c.w, hi.z, hi.w);
 }
 
-template <typename BT>
+template <typename BT, bool kTransB>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_kernel(const __grid_constant__ CUtensorMap tm_lhs,  // [rows, d] bf16
                const __grid_constant__ CUtensorMap tm_rhs,  // [E, d, f]
@@ -279,6 +286,8 @@ prefill_kernel(const __grid_constant__ CUtensorMap tm_lhs,  // [rows, d] bf16
           tma_load_2d(a_tile(s), &tm_lhs, &full[s], kt * kTK, t.r0);
           if constexpr (P::kQuant) {
             tma_load_3d(code_tile(s), &tm_rhs, &full[s], t.n0, kt * kTK, t.g);
+          } else if constexpr (kTransB) {
+            tma_load_3d(b_tile(s), &tm_rhs, &full[s], kt * kTK, t.n0, t.g);
           } else {
 #pragma unroll
             for (int q = 0; q < kTN / 64; ++q)
@@ -343,9 +352,11 @@ prefill_kernel(const __grid_constant__ CUtensorMap tm_lhs,  // [rows, d] bf16
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTK / 16; ++kk)
-          wgmma_m64n256k16_bf16<1>(acc, wgmma_desc(a_tile(s) + wg * 8192 + kk * 32, 16, 1024),
-                                   wgmma_desc(b_tile(s) + kk * 16 * 128, kBLbo, kBSbo),
-                                   kt > 0 || kk > 0);
+          wgmma_m64n256k16_bf16<kTransB ? 0 : 1>(
+              acc, wgmma_desc(a_tile(s) + wg * 8192 + kk * 32, 16, 1024),
+              kTransB ? wgmma_desc(b_tile(s) + kk * 32, 16, 1024)
+                      : wgmma_desc(b_tile(s) + kk * 16 * 128, kBLbo, kBSbo),
+              kt > 0 || kk > 0);
         wgmma_commit();
         fence_regs<128>(acc);
         wgmma_wait<1>();  // the previous step's products are done: free its stage
@@ -603,24 +614,29 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* d
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename BT>
+// `d` is the contraction and `f` the output width; K4^T (kTransB) reads
+// rhs as [E, f, d].
+template <typename BT, bool kTransB>
 cudaError_t launch_prefill(const void* lhs, const void* rhs, const float* scale,
                            const int* group_sizes, void* out, int rows, int d, int f,
                            int n_groups, int blocks, cudaStream_t stream) {
   constexpr int smem = Prefill<BT>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      prefill_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_kernel<BT, kTransB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap tm_lhs, tm_rhs;
   const cuuint64_t lhs_dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   const cuuint32_t lhs_box[2] = {kTK, kTM};
-  const cuuint64_t rhs_dims[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)n_groups};
-  const cuuint32_t rhs_box[3] = {Prefill<BT>::kQuant ? (cuuint32_t)kTN : 64u, kTK, 1};
+  const cuuint64_t rhs_dims[3] = {(cuuint64_t)(kTransB ? d : f), (cuuint64_t)(kTransB ? f : d),
+                                  (cuuint64_t)n_groups};
+  const cuuint32_t rhs_box[3] = {kTransB ? (cuuint32_t)kTK
+                                 : Prefill<BT>::kQuant ? (cuuint32_t)kTN : 64u,
+                                 kTransB ? (cuuint32_t)kTN : (cuuint32_t)kTK, 1};
   if (!tensor_map(&tm_lhs, lhs, 2, lhs_dims, lhs_box, 2, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&tm_rhs, rhs, 3, rhs_dims, rhs_box, sizeof(BT),
                   Prefill<BT>::kQuant ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
-  prefill_kernel<BT><<<blocks, kThreads, smem, stream>>>(
+  prefill_kernel<BT, kTransB><<<blocks, kThreads, smem, stream>>>(
       tm_lhs, tm_rhs, scale, group_sizes, static_cast<bf16*>(out), rows, d, f, n_groups);
   return cudaGetLastError();
 }
@@ -636,8 +652,8 @@ cudaError_t launch(const void* lhs, const void* rhs, const float* scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (path == 0) {  // prefill: persistent blocks
     if (grid_x < 1 || grid_y != 1) return cudaErrorInvalidValue;
-    return launch_prefill<BT>(lhs, rhs, scale, group_sizes, out, rows, d, f, n_groups,
-                              grid_x, s);
+    return launch_prefill<BT, false>(lhs, rhs, scale, group_sizes, out, rows, d, f, n_groups,
+                                     grid_x, s);
   }
   constexpr int W = Decode<BT>::kWidth;
   if (path != 1 || grid_x != (f + W - 1) / W || grid_y != n_groups + 1)
@@ -663,6 +679,21 @@ extern "C" int grouped_matmul_bf16(const void* lhs, const void* rhs, const int* 
                                    int grid_x, int grid_y, void* stream) {
   return static_cast<int>(launch<bf16>(lhs, rhs, nullptr, group_sizes, out, rows, d, f,
                                        n_groups, path, grid_x, grid_y, stream));
+}
+
+// K4^T: out [rows, f] = lhs [rows, d] @ rhs[g]^T, rhs [E, f, d] bf16 (the
+// forward's [E, d_in, f_out] stack, read in place), always on the prefill
+// path with grid_x persistent blocks.
+extern "C" int grouped_matmul_bf16_t(const void* lhs, const void* rhs, const int* group_sizes,
+                                     void* out, int rows, int d, int f, int n_groups,
+                                     int grid_x, void* stream) {
+  if (rows == 0) return 0;
+  if (n_groups < 1 || n_groups > kMaxGroups || d < 1 || d % 8 != 0 || f < 1 || f % 8 != 0 ||
+      grid_x < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_prefill<bf16, true>(lhs, rhs, nullptr, group_sizes, out, rows,
+                                                     d, f, n_groups, grid_x,
+                                                     static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int grouped_matmul_int8(const void* lhs, const void* q, const float* scale,

@@ -8,6 +8,9 @@ bfloat16 numpy type, which ``torch.from_numpy`` refuses; they are
 reinterpreted through a ``uint16`` view, detected by dtype name so this
 module needs no ``ml_dtypes`` import.
 
+``train_state_from_jax`` carries a JAX training state (parameters, optax's Adam
+moments and count) into AdamW, so a JAX run resumes in the port.
+
 ``kv_pools_from_jax`` carries a JAX engine's KV pools (numpy), int8 codes
 and scales included, so both packages can decode from one pool state.
 """
@@ -84,3 +87,28 @@ def kv_pools_from_jax(
     if scales[0].dtype != torch.float32 or scales[0].shape != pools[0].shape[:2] + pools[0].shape[3:4]:
         raise ValueError(f"scales must be float32 [L, P, n_kv], got {scales[0].dtype} {tuple(scales[0].shape)}")
     return tuple(pools + scales)
+
+
+def train_state_from_jax(state: Any, cfg: LlamaConfig, device, lr: float = 1e-4):
+    """Carry a JAX ``TrainState`` (numpy leaves: ``jax.tree.map(np.asarray,
+    state)``) into the port's ``parallel.TrainState``: parameters through
+    ``params_from_jax``, trainable, and optax's ``ScaleByAdamState`` —
+    found in the optimizer state by its ``count``, ``mu`` and ``nu`` — as
+    AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` of each parameter, so
+    a run started in the JAX package resumes in the port."""
+    from ..parallel.train import TrainState, make_optimizer, param_leaves, trainable
+
+    adam = [s for s in state.opt_state if all(hasattr(s, a) for a in ("count", "mu", "nu"))]
+    if len(adam) != 1:
+        raise ValueError("the optimizer state holds no single ScaleByAdamState (count, mu, nu)")
+    adam = adam[0]
+    params = trainable(params_from_jax(state.params, cfg, device))
+    optimizer = make_optimizer(params, lr)
+    count = float(np.asarray(adam.count))
+    moments = zip(param_leaves(params), param_leaves(params_from_jax(adam.mu, cfg, device)),
+                  param_leaves(params_from_jax(adam.nu, cfg, device)))
+    for p, mu, nu in moments:
+        # AdamW's own form of a step count: a float32 scalar on the host.
+        optimizer.state[p] = {"step": torch.tensor(count, dtype=torch.float32),
+                              "exp_avg": mu, "exp_avg_sq": nu}
+    return TrainState(params=params, optimizer=optimizer, step=int(np.asarray(state.step)))

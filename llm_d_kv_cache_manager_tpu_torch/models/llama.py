@@ -355,8 +355,12 @@ def _moe_mlp_dense(layer: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Te
 
 def _grouped_dot(cfg: LlamaConfig, row_group_ids: torch.Tensor):
     """Grouped-matmul dispatcher for the routed MoE path, per
-    ``cfg.moe_gmm``. ``row_group_ids`` is the sorted expert id per row."""
-    from ..ops.gmm import grouped_matmul, grouped_matmul_plain
+    ``cfg.moe_gmm``. ``row_group_ids`` is the sorted expert id per row.
+    Under autograd (training: grad enabled and ``lhs`` or the expert stack
+    requires grad) the kernels' path goes through ``GroupedMatmul``, whose
+    backward launches K4^T and K6; every other call takes the direct path.
+    ``"xla"``'s plain version is differentiated by autograd itself."""
+    from ..ops.gmm import GroupedMatmul, grouped_matmul, grouped_matmul_plain
 
     if cfg.moe_gmm not in ("auto", "kernel", "xla"):
         raise ValueError(f"unknown moe_gmm {cfg.moe_gmm!r}")
@@ -368,6 +372,10 @@ def _grouped_dot(cfg: LlamaConfig, row_group_ids: torch.Tensor):
             return grouped_matmul_plain(lhs, w, group_sizes, row_group_ids=row_group_ids)
         if cfg.moe_gmm == "kernel" and lhs.device.type != "cuda":
             raise ValueError(f"moe_gmm='kernel' needs CUDA tensors, got {lhs.device}")
+        if torch.is_grad_enabled() and (
+            lhs.requires_grad or (isinstance(w, torch.Tensor) and w.requires_grad)
+        ):
+            return GroupedMatmul.apply(lhs, w, group_sizes, row_group_ids)
         return grouped_matmul(lhs, w, group_sizes, row_group_ids=row_group_ids)
 
     return gdot

@@ -1,6 +1,6 @@
 from .rmsnorm import rms_norm
 from .rope import apply_rope, rope_frequencies
-from .attention import prefill_with_paged_context, widen_paged_context
+from .attention import causal_prefill_attention, prefill_with_paged_context, widen_paged_context
 from .flash_prefill import flash_prefill_paged, flash_prefill_plain
 from .paged_attention import (
     paged_attention,
@@ -13,11 +13,16 @@ from .sampling import sample_tokens, spec_sample
 from ._counting import LAUNCH_LOCK
 # Last: gmm imports models.quant, whose package imports the names above.
 from .gmm import (
+    GroupedMatmul,
     grouped_matmul,
     grouped_matmul_bf16,
+    grouped_matmul_bf16_t,
     grouped_matmul_int8,
     grouped_matmul_plain,
+    grouped_matmul_tgmm,
+    grouped_matmul_tgmm_plain,
     plan_grouped_matmul,
+    plan_grouped_matmul_tgmm,
 )
 
 #: every kernel wrapper that counts its launches (``wrapper.launches``, each
@@ -28,6 +33,8 @@ COUNTED = {
     "flash_prefill": flash_prefill_paged,
     "grouped_matmul_bf16": grouped_matmul_bf16,
     "grouped_matmul_int8": grouped_matmul_int8,
+    "grouped_matmul_bf16_t": grouped_matmul_bf16_t,
+    "grouped_matmul_tgmm": grouped_matmul_tgmm,
 }
 
 __all__ = [
@@ -38,6 +45,7 @@ __all__ = [
     "rms_norm",
     "apply_rope",
     "rope_frequencies",
+    "causal_prefill_attention",
     "prefill_with_paged_context",
     "widen_paged_context",
     "flash_prefill_paged",
@@ -47,9 +55,14 @@ __all__ = [
     "paged_attention_split_plain",
     "plan_decode_splits",
     "paged_decode_int8",
+    "GroupedMatmul",
     "grouped_matmul",
     "grouped_matmul_bf16",
+    "grouped_matmul_bf16_t",
     "grouped_matmul_int8",
     "grouped_matmul_plain",
+    "grouped_matmul_tgmm",
+    "grouped_matmul_tgmm_plain",
     "plan_grouped_matmul",
+    "plan_grouped_matmul_tgmm",
 ]

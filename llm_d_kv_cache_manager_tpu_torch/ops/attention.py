@@ -11,6 +11,9 @@ the card; it makes no attempt to be fast.
 read: it gathers the pages a block table names and dequantizes them to the
 chunk's dtype, chunk-sized, never pool-sized. The model's prefill feeds
 its result to the flash-prefill kernel.
+
+``causal_prefill_attention`` is training's attention (no pages, no
+kernel: the JAX function is plain ``jnp`` too, and K2 has no backward).
 """
 
 from __future__ import annotations
@@ -106,4 +109,38 @@ def prefill_with_paged_context(
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bqhgt,bthd->bqhgd", p, v_all)
     out = out / torch.where(denom > 0, denom, torch.ones_like(denom))
+    return out.reshape(b, s, n_q, d).to(q.dtype)
+
+
+def causal_prefill_attention(
+    q: torch.Tensor,  # [batch, seq, n_heads, head_dim]
+    k: torch.Tensor,  # [batch, seq, n_kv_heads, head_dim]
+    v: torch.Tensor,  # [batch, seq, n_kv_heads, head_dim]
+    *,
+    positions: Optional[torch.Tensor] = None,  # [batch, seq] absolute positions
+    valid: Optional[torch.Tensor] = None,  # [batch, seq] bool, False = padding
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal self-attention over one contiguous chunk, differentiable: the
+    training forward's attention (``parallel/train.py``), the JAX package's
+    ``ops/attention.py::causal_prefill_attention`` in plain PyTorch. Scores
+    and softmax in float32; the causal mask compares absolute ``positions``
+    (an arange when None), ``valid`` masks padding keys, and a fully masked
+    query row (softmax NaN) gives zeros, as in JAX. Returns [batch, seq,
+    n_heads, head_dim] in ``q``'s dtype."""
+    b, s, n_q, d = q.shape
+    n_kv = k.shape[2]
+    group = n_q // n_kv
+    if scale is None:
+        scale = d**-0.5
+    qf = q.float().reshape(b, s, n_kv, group, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    if positions is None:
+        positions = torch.arange(s, device=q.device).expand(b, s)
+    mask = positions[:, None, None, :, None] >= positions[:, None, None, None, :]
+    if valid is not None:
+        mask = mask & valid[:, None, None, None, :]
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    probs = torch.where(torch.isnan(probs), torch.zeros_like(probs), probs)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, s, n_q, d).to(q.dtype)

@@ -17,6 +17,15 @@ integers alone by ``plan_grouped_matmul``: the persistent ``wgmma``/TMA
 GEMM for prefill-shaped calls, or the weight-streaming ``mma.sync`` GEMV
 for decode-shaped ones. The wrapper records the plan it launched on
 ``last_plan``.
+
+Training differentiates through ``GroupedMatmul``, megablox's
+``custom_vjp`` (``jax/experimental/pallas/ops/tpu/megablox/ops.py:22``):
+its backward takes the input gradient ``dlhs[r] = dout[r] @ rhs[g(r)]^T``
+through K4^T (``grouped_matmul_bf16_t``: K4's prefill path reading the
+expert stack transposed in place) and the expert-weight gradient
+``drhs[g] = lhs[rows_g]^T @ dout[rows_g]`` through K6
+(``grouped_matmul_tgmm``, ``csrc/grouped_matmul_tgmm.cu``) for CUDA
+tensors, through their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ _DEC_THREADS, _DEC_ROWS = 256, 8
 
 
 def plan_grouped_matmul(rows: int, n_groups: int, d: int, f: int, quantized: bool,
-                        sm_count: int) -> dict:
+                        sm_count: int, transpose_rhs: bool = False) -> dict:
     """The launch of one grouped matmul, from integers alone (never a tensor
     value, so the launch never synchronises with the host).
 
@@ -66,12 +75,15 @@ def plan_grouped_matmul(rows: int, n_groups: int, d: int, f: int, quantized: boo
     there can be (``ceil(rows / 128) + n_groups + 1`` row tiles, each
     non-empty group adding at most one partial tile and the tail one, times
     ``ceil(f / 256)``). Raises for widths TMA cannot tile: ``d * 2`` and
-    ``f`` times the element size must be multiples of 16 bytes."""
+    ``f`` times the element size must be multiples of 16 bytes.
+    ``transpose_rhs`` (K4^T: ``d`` the contraction, ``f`` the output width)
+    always takes the prefill path, whose kernel alone reads the stack
+    transposed."""
     elem = 1 if quantized else 2
     if d < 1 or f < 1 or (d * 2) % 16 or (f * elem) % 16:
         raise ValueError(f"grouped_matmul: d * 2 = {d * 2} and f * {elem} = {f * elem} "
                          "must be positive multiples of 16 bytes")
-    if rows < 16 * n_groups:
+    if rows < 16 * n_groups and not transpose_rhs:
         width = 16 // elem * 8
         return {"path": "decode", "tile": (_DEC_ROWS, width, 16), "stages": 0,
                 "grid": (-(-f // width), n_groups + 1, 1), "threads": _DEC_THREADS,
@@ -97,16 +109,49 @@ def grouped_matmul_plain(
     if quantized and row_group_ids is None:
         raise ValueError("row_group_ids required for quantized rhs")
     rows = lhs.shape[0]
-    out = torch.zeros((rows, rhs.shape[2]), dtype=torch.float32, device=lhs.device)
+    acc = _acc_dtype(lhs)
+    out = torch.zeros((rows, rhs.shape[2]), dtype=acc, device=lhs.device)
+    for g, start, n in _group_spans(group_sizes, rows):
+        w = (rhs.q if quantized else rhs)[g].to(acc)
+        o = lhs[start : start + n].to(acc) @ w
+        out[start : start + n] = o * rhs.scale[g].to(acc) if quantized else o
+    return out.to(lhs.dtype)
+
+
+def _acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation type: float32, or float64 for
+    float64 inputs (``torch.autograd.gradcheck``)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _group_spans(group_sizes: torch.Tensor, rows: int):
+    """(group, first row, rows) of each non-empty group, as the kernels
+    bound them: negative sizes count as 0 and the sums are clamped to
+    ``rows``. Reads ``group_sizes`` on the host."""
     start = 0
     for g, n in enumerate(group_sizes.tolist()):
         n = min(max(int(n), 0), rows - start)
         if n > 0:
-            w = (rhs.q if quantized else rhs)[g].float()
-            o = lhs[start : start + n].float() @ w
-            out[start : start + n] = o * rhs.scale[g].float() if quantized else o
+            yield g, start, n
         start += n
-    return out.to(lhs.dtype)
+
+
+def grouped_matmul_tgmm_plain(
+    lhs: torch.Tensor,  # [rows, d] group-sorted rows
+    dout: torch.Tensor,  # [rows, f]
+    group_sizes: torch.Tensor,  # [E] int32
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """K6's function in plain PyTorch: ``drhs[g] = lhs[rows_g]^T @
+    dout[rows_g]``, one float32 product per non-empty group, zeros for an
+    empty group, cast to ``out_dtype`` (default ``lhs.dtype``); rows past
+    the last group add nothing. Reads ``group_sizes`` on the host."""
+    rows, d = lhs.shape
+    acc = _acc_dtype(lhs)
+    out = torch.zeros((group_sizes.shape[0], d, dout.shape[1]), dtype=acc, device=lhs.device)
+    for g, start, n in _group_spans(group_sizes, rows):
+        out[g] = lhs[start : start + n].to(acc).T @ dout[start : start + n].to(acc)
+    return out.to(out_dtype or lhs.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,20 +169,34 @@ def _entry(quantized: bool):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _entry_t():
+    """The C entry point of K4^T, typed once."""
+    fn = _build.load("grouped_matmul").grouped_matmul_bf16_t
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
 def _check(cond: bool, name: str, msg: str) -> None:
     if not cond:
         raise ValueError(f"{name} (CUDA): {msg}")
 
 
-def _launch(name: str, lhs, b, scale, group_sizes) -> tuple[torch.Tensor, Optional[dict]]:
-    """Check the operands and launch K4 (``scale`` None) or K5 as
+def _launch(name: str, lhs, b, scale, group_sizes,
+            transpose_rhs: bool = False) -> tuple[torch.Tensor, Optional[dict]]:
+    """Check the operands and launch K4 (``scale`` None), K5, or K4^T
+    (``transpose_rhs``: ``b`` is ``[E, f, d]``, read as ``b[g]^T``) as
     ``plan_grouped_matmul`` plans it; returns the output and the plan (None
     when there are no rows and nothing is launched)."""
     dev = lhs.device
     _check(dev.type == "cuda", name, f"tensors must be on a CUDA device, got {dev}")
     _check(lhs.dim() == 2 and b.dim() == 3, name, "lhs must be [rows, d] and rhs [E, d, f]")
     rows, d = lhs.shape
-    n_groups, bd, f = b.shape
+    if transpose_rhs:
+        n_groups, f, bd = b.shape
+    else:
+        n_groups, bd, f = b.shape
     _check(bd == d, name, f"rhs contraction width {bd} != lhs width {d}")
     _check(group_sizes.shape == (n_groups,), name, "group_sizes must be [E]")
     _check(1 <= n_groups <= _MAX_GROUPS, name, f"1..{_MAX_GROUPS} groups only")
@@ -160,14 +219,19 @@ def _launch(name: str, lhs, b, scale, group_sizes) -> tuple[torch.Tensor, Option
     out = torch.empty((rows, f), dtype=torch.bfloat16, device=dev)
     if rows == 0:
         return out, None
-    plan = plan_grouped_matmul(rows, n_groups, d, f, scale is not None, _sm_count(dev.index))
+    plan = plan_grouped_matmul(rows, n_groups, d, f, scale is not None, _sm_count(dev.index),
+                               transpose_rhs=transpose_rhs)
     ptrs = (lhs.data_ptr(), b.data_ptr()) + ((scale.data_ptr(),) if scale is not None else ())
     grid = plan["grid"]
-    err = _entry(scale is not None)(
-        *ptrs, group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups,
-        0 if plan["path"] == "prefill" else 1, grid[0], grid[1],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if transpose_rhs:
+        err = _entry_t()(*ptrs, group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups,
+                         grid[0], stream)
+    else:
+        err = _entry(scale is not None)(
+            *ptrs, group_sizes.data_ptr(), out.data_ptr(), rows, d, f, n_groups,
+            0 if plan["path"] == "prefill" else 1, grid[0], grid[1], stream,
+        )
     _build.check_launch(name, err)
     return out, plan
 
@@ -222,9 +286,126 @@ def grouped_matmul(
     return grouped_matmul_bf16(lhs, rhs, group_sizes)
 
 
+def grouped_matmul_bf16_t(
+    dout: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """K4^T on the card, the input gradient of K4: ``out[r] = dout[r] @
+    rhs[g(r)]^T``, bf16 ``dout [rows, f]`` by the bf16 expert stack ``rhs
+    [E, d, f]``; returns bf16 ``[rows, d]``, rows past the last group zero.
+    K4's prefill kernel reading ``rhs`` transposed in place, as megablox's
+    ``transpose_rhs=True``, whatever the rows; counts on this wrapper, not
+    on K4's."""
+    name = "grouped_matmul_bf16_t"
+    out, plan = _launch(name, dout, rhs, None, group_sizes, transpose_rhs=True)
+    if plan is not None:
+        grouped_matmul_bf16_t.last_plan = plan
+        count_launch(grouped_matmul_bf16_t)
+    return out
+
+
+#: K6 (``csrc/grouped_matmul_tgmm.cu``): a block's output tile of [d, f]
+#: and its threads
+_TG_TILE, _TG_THREADS = 64, 128
+
+
+def plan_grouped_matmul_tgmm(n_groups: int, d: int, f: int) -> dict:
+    """K6's launch from integers alone: one block per (64 f columns, 64 d
+    rows, group), columns fastest."""
+    return {"grid": (-(-f // _TG_TILE), -(-d // _TG_TILE), n_groups),
+            "threads": _TG_THREADS, "tile": (_TG_TILE, _TG_TILE)}
+
+
+@functools.lru_cache(maxsize=None)
+def _tgmm_entry():
+    fn = _build.load("grouped_matmul_tgmm").grouped_matmul_tgmm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return fn
+
+
+def grouped_matmul_tgmm(
+    lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor
+) -> torch.Tensor:
+    """K6 on the card, the expert-weight gradient of K4: ``drhs[g] =
+    lhs[rows_g]^T @ dout[rows_g]`` for bf16 ``lhs [rows, d]`` and ``dout
+    [rows, f]`` over ``group_sizes`` (int32, on the device, never read by
+    the host); returns bf16 ``[E, d, f]``, zeros for an empty group."""
+    name = "grouped_matmul_tgmm"
+    dev = lhs.device
+    _check(dev.type == "cuda", name, f"tensors must be on a CUDA device, got {dev}")
+    _check(lhs.dim() == 2 and dout.dim() == 2 and dout.shape[0] == lhs.shape[0], name,
+           "lhs must be [rows, d] and dout [rows, f]")
+    rows, d = lhs.shape
+    f = dout.shape[1]
+    n_groups = group_sizes.shape[0] if group_sizes.dim() == 1 else 0
+    _check(1 <= n_groups <= 65535, name, "group_sizes must be [E], 1 <= E <= 65535")
+    _check(d % 8 == 0 and f % 8 == 0 and d > 0 and f > 0, name, "d % 8 and f % 8 must be 0")
+    _check(lhs.dtype == torch.bfloat16 and dout.dtype == torch.bfloat16, name,
+           "lhs and dout must be bfloat16")
+    _check(group_sizes.dtype == torch.int32, name, "group_sizes must be int32")
+    for t in (lhs, dout, group_sizes):
+        _check(t.device == dev, name, "all tensors must be on one CUDA device")
+        _check(t.is_contiguous(), name, "tensors must be contiguous")
+        _check(t.data_ptr() % 16 == 0 or t.numel() == 0, name, "tensors must be 16-byte aligned")
+    if rows == 0:
+        return torch.zeros((n_groups, d, f), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((n_groups, d, f), dtype=torch.bfloat16, device=dev)
+    plan = plan_grouped_matmul_tgmm(n_groups, d, f)
+    err = _tgmm_entry()(
+        lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+        rows, d, f, n_groups, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(name, err)
+    grouped_matmul_tgmm.last_plan = plan
+    count_launch(grouped_matmul_tgmm)
+    return out
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """``grouped_matmul`` with a backward, the counterpart of megablox
+    ``gmm``'s ``custom_vjp``. Forward: K4 for CUDA tensors,
+    ``grouped_matmul_plain`` for CPU tensors. Backward: ``dlhs`` through
+    K4^T and ``drhs`` (in ``rhs``'s dtype) through K6 for CUDA tensors,
+    through ``grouped_matmul_plain`` over ``rhs^T`` and
+    ``grouped_matmul_tgmm_plain`` for CPU tensors; no other path.
+    ``group_sizes`` takes no gradient. A ``QuantizedTensor`` rhs has no
+    backward (JAX's int8 kernel has no VJP): asking for a gradient
+    through it raises."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, row_group_ids=None):
+        ctx.quantized = isinstance(rhs, QuantizedTensor)
+        if ctx.quantized:
+            ctx.save_for_backward(lhs, group_sizes)
+        else:
+            ctx.save_for_backward(lhs, rhs, group_sizes)
+        return grouped_matmul(lhs, rhs, group_sizes, row_group_ids=row_group_ids)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if ctx.quantized:
+            raise NotImplementedError(
+                "grouped_matmul has no backward through a quantized (int8) rhs")
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        dout = dout.contiguous()
+        cpu = dout.device.type == "cpu"
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = (grouped_matmul_plain(dout, rhs.transpose(1, 2), group_sizes) if cpu
+                    else grouped_matmul_bf16_t(dout, rhs, group_sizes))
+        if ctx.needs_input_grad[1]:
+            drhs = (grouped_matmul_tgmm_plain(lhs, dout, group_sizes, rhs.dtype) if cpu
+                    else grouped_matmul_tgmm(lhs, dout, group_sizes).to(rhs.dtype))
+        return dlhs, drhs, None, None
+
+
 #: kernel launches since the last reset (the CPU path never counts);
-#: ``last_plan`` is the last launch's ``plan_grouped_matmul``
+#: ``last_plan`` is the last launch's plan
 grouped_matmul_bf16.launches = 0
 grouped_matmul_int8.launches = 0
+grouped_matmul_bf16_t.launches = 0
+grouped_matmul_tgmm.launches = 0
 grouped_matmul_bf16.last_plan = None
 grouped_matmul_int8.last_plan = None
+grouped_matmul_bf16_t.last_plan = None
+grouped_matmul_tgmm.last_plan = None
