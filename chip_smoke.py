@@ -730,17 +730,24 @@ def check_moe_layer(models, llama, ops, dev, gen) -> dict:
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024
 #: K4^T / K6 forms: the training path's routing, and decode / edge / ragged
 #: from ``gmm_group_sizes`` (64 rows over 128 groups; empty groups, one
-#: large group, rows past the last group); all held, the first also timed
-GMM_BWD_FORMS = ("train", "decode", "edge", "ragged")
+#: large group, rows past the last group); "nan_neighbours": the ragged
+#: sizes with NaN in every row of the odd groups and past the last group,
+#: held on the even groups (K6's slices, K4^T's rows), so a value of a
+#: neighbouring group must not leak into a held one; all held, the first
+#: also timed
+GMM_BWD_FORMS = ("train", "decode", "edge", "ragged", "nan_neighbours")
+#: an off-tile width (d, f): multiples of 8 but of neither K6's 128 x 256
+#: output tile nor its 64-wide boxes, held in the forms after it
+GMM_BWD_OFF_TILE = ((200, 264), ("ragged", "nan_neighbours"))
 
 
 def gmm_bwd_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
     """Rows per expert and the row count: "train" routes the training
     batch's 2,048 tokens by top-8 of random router logits (16,384 rows, all
     in groups, as ``_moe_mlp_routed`` routes them); the others as in
-    ``gmm_group_sizes``."""
+    ``gmm_group_sizes`` ("nan_neighbours" as "ragged")."""
     if form != "train":
-        return gmm_group_sizes(form, gen, dev)
+        return gmm_group_sizes("ragged" if form == "nan_neighbours" else form, gen, dev)
     logits = torch.randn((TRAIN_BATCH * TRAIN_SEQ, MOE_E), generator=gen, device=dev)
     sizes = torch.bincount(logits.topk(MOE_TOPK, dim=-1).indices.reshape(-1), minlength=MOE_E)
     return sizes.tolist(), TRAIN_BATCH * TRAIN_SEQ * MOE_TOPK
@@ -750,21 +757,35 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
     """K4^T (``dlhs = dout @ rhs[g]^T``) and K6 (``drhs[g] = lhs[rows_g]^T @
     dout[rows_g]``), the backward of K4 that training runs, at Qwen3-30B-A3B
     widths, gate/up (d, f) = (2048, 768) and down (768, 2048), in every
-    ``GMM_BWD_FORMS`` form: each held element by element against its
-    float32 plain version, called twice and required bit-equal; K4^T's rows
-    past the last group must be zero. The "train" form is timed with the L2
-    flushed before each call, beside the plain version, the library call
-    (``torch._grouped_mm``, where it takes the operands)."""
+    ``GMM_BWD_FORMS`` form, and at ``GMM_BWD_OFF_TILE``: each held element by
+    element against its float32 plain version (the "nan_neighbours" form on
+    its held groups and rows, which must be finite), called twice and
+    required bit-equal; K4^T's rows past the last group must be zero. The
+    "train" form is timed with the L2 flushed before each call, beside the
+    plain version, the library call (``torch._grouped_mm``, where it takes
+    the operands)."""
     bf = torch.bfloat16
     results = {"grouped_matmul_bf16_t": {}, "grouped_matmul_tgmm": {}}
-    for width, (d, f) in GMM_WIDTHS.items():
+    off_tile, off_tile_forms = GMM_BWD_OFF_TILE
+    for width, (d, f) in dict(GMM_WIDTHS, off_tile=off_tile).items():
         rhs = (torch.randn((MOE_E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
-        for form in GMM_BWD_FORMS:
+        for form in off_tile_forms if width == "off_tile" else GMM_BWD_FORMS:
             sizes, rows = gmm_bwd_group_sizes(form, gen, dev)
             in_groups, nonempty, max_group = sum(sizes), sum(1 for n in sizes if n > 0), max(sizes)
             gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
             lhs = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             dout = torch.randn((rows, f), generator=gen, device=dev).to(bf)
+            # The held part of each output: K6's groups and K4^T's rows.
+            keep = {"grouped_matmul_tgmm": torch.arange(MOE_E, device=dev),
+                    "grouped_matmul_bf16_t": torch.arange(rows, device=dev)}
+            if form == "nan_neighbours":
+                owner = torch.full((rows,), -1, dtype=torch.long, device=dev)
+                owner[:in_groups] = torch.repeat_interleave(torch.arange(MOE_E, device=dev), gs.long())
+                poisoned = (owner < 0) | (owner % 2 == 1)
+                lhs[poisoned] = float("nan")
+                dout[poisoned] = float("nan")
+                keep = {"grouped_matmul_tgmm": keep["grouped_matmul_tgmm"][0::2],
+                        "grouped_matmul_bf16_t": torch.nonzero(~poisoned).squeeze(1)}
             calls = {
                 "grouped_matmul_bf16_t": (lambda: ops.grouped_matmul_bf16_t(dout, rhs, gs)),
                 "grouped_matmul_tgmm": (lambda: ops.grouped_matmul_tgmm(lhs, dout, gs)),
@@ -775,20 +796,22 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
             }
             for name, call in calls.items():
                 out = call()
-                ref = plains[name](lhs.float(), dout.float(), rhs.float())
-                ref_abs = plains[name](lhs.float().abs(), dout.float().abs(), rhs.float().abs())
+                idx = keep[name]
+                ref = plains[name](lhs.float(), dout.float(), rhs.float()).index_select(0, idx)
+                ref_abs = plains[name](lhs.float().abs(), dout.float().abs(),
+                                       rhs.float().abs()).index_select(0, idx)
                 torch.cuda.synchronize()
-                if not torch.isfinite(out.float()).all():
+                if not torch.isfinite(out.index_select(0, idx).float()).all():
                     fail(f"{name} produced non-finite values ({form}/{width})")
                 if name == "grouped_matmul_bf16_t" and (out[in_groups:] != 0).any():
                     fail(f"{name}: rows past the last group are not zero ({form}/{width})")
                 coef = (f if name == "grouped_matmul_bf16_t" else max_group) * F32_ULP
-                case = held(out, ref, ref_abs, abs_coef=coef)
-                if not (call() == out).all():
+                case = held(out.index_select(0, idx), ref, ref_abs, abs_coef=coef)
+                if not torch.equal(call().view(torch.int16), out.view(torch.int16)):
                     fail(f"{name}: two calls on the same inputs differ ({form}/{width})")
                 del ref, ref_abs, out
                 entry = dict(case, rows=rows, in_groups=in_groups, d=d, f=f,
-                             nonempty_groups=nonempty, max_group=max_group,
+                             nonempty_groups=nonempty, max_group=max_group, held=int(idx.numel()),
                              plan=getattr(ops, name).last_plan)
                 results[name][f"{form}/{width}"] = entry
                 if form != "train":
@@ -821,7 +844,9 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
                        if name.endswith("_t") else
                        "llm_d_kv_cache_manager_tpu_torch/csrc/grouped_matmul_tgmm.cu"),
             "design": ("K4's prefill kernel, B read K-major from rhs in place (route (a))"
-                       if name.endswith("_t") else "mma.sync, one block per (64x64 tile, group)"),
+                       if name.endswith("_t") else
+                       "persistent warp-specialised wgmma/TMA, one block an SM over (group, "
+                       "128 d x 256 f) tiles, the group's rows the contraction, TMA-store epilogue"),
             "timing": "L2 flushed before each call",
             "replaces": ("jax/experimental/pallas/ops/tpu/megablox/ops.py:79 "
                          "(gmm transpose_rhs=True, pallas_call megablox/gmm.py:526), via "
@@ -5054,8 +5079,8 @@ def main() -> None:
         if len(gmm_prefill) != 3 or not all(f["HGMMA"] for f in gmm_prefill):
             fail(f"cuobjdump -sass shows no HGMMA in a grouped-matmul prefill kernel: {sass['grouped_matmul']}")
         tgmm = [f for name, f in sass["grouped_matmul_tgmm"].items() if "tgmm_kernel" in name]
-        if len(tgmm) != 1 or not tgmm[0]["HMMA"]:
-            fail(f"cuobjdump -sass shows no HMMA in the tgmm kernel: {sass['grouped_matmul_tgmm']}")
+        if len(tgmm) != 1 or not tgmm[0]["HGMMA"]:
+            fail(f"cuobjdump -sass shows no HGMMA in the tgmm kernel: {sass['grouped_matmul_tgmm']}")
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)

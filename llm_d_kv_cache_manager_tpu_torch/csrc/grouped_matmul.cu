@@ -352,7 +352,7 @@ prefill_kernel(const __grid_constant__ CUtensorMap tm_lhs,  // [rows, d] bf16
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kTK / 16; ++kk)
-          wgmma_m64n256k16_bf16<kTransB ? 0 : 1>(
+          wgmma_m64n256k16_bf16<0, kTransB ? 0 : 1>(
               acc, wgmma_desc(a_tile(s) + wg * 8192 + kk * 32, 16, 1024),
               kTransB ? wgmma_desc(b_tile(s) + kk * 32, 16, 1024)
                       : wgmma_desc(b_tile(s) + kk * 16 * 128, kBLbo, kBSbo),
@@ -574,45 +574,6 @@ decode_kernel(const bf16* __restrict__ lhs,           // [rows, d]
 }
 
 // -- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// (the library links no libcuda); null where it is not found.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A row-major tensor of `rank` dims (innermost first), `elem` bytes an
-// element, tiled by `box`; zero fill outside it.
-bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                const cuuint32_t* box, int elem, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                rank, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // `d` is the contraction and `f` the output width; K4^T (kTransB) reads
 // rhs as [E, f, d].

@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks for warp-specialised tensor-core kernels:
-// mbarriers, TMA tile loads into shared memory, wgmma descriptors and the
-// bf16 m64n256k16 wgmma with float32 accumulators, and setmaxnreg. Used by
-// grouped_matmul.cu; shaped so that a later wgmma flash prefill can take
-// them too. ops/_build.py hashes a header into the digest of every library
-// whose source includes it.
+// mbarriers, TMA tile loads into shared memory and stores out of it,
+// wgmma descriptors and the bf16 m64n256k16 wgmma with float32
+// accumulators, and setmaxnreg. Used by grouped_matmul.cu and
+// grouped_matmul_tgmm.cu. ops/_build.py hashes a header into the digest of
+// every library whose source includes it.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -68,6 +69,35 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// -- TMA: tensor tiles shared -> global, tracked as bulk groups -------------
+// Elements outside the tensor are not written.
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed bulk groups still read
+// their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's committed bulk groups are pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -134,12 +164,13 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // d (64 x 256 f32, the warpgroup's accumulator fragment) += a (64 x 16
-// bf16, K-major in shared memory) * b (16 x 256 bf16 in shared memory;
+// bf16 in shared memory; TransA = 0: K-major, TransA = 1: MN-major, m
+// contiguous) * b (16 x 256 bf16 in shared memory; TransB = 0: K-major,
 // TransB = 1: MN-major, n contiguous). scale_d = 0 overwrites d instead.
 // Fragment: thread 32w + 4g + t of the warpgroup holds, for j = 0..31,
 // d[4j + {0, 1}] at row 16w + g, columns 8j + 2t + {0, 1}, and d[4j + {2,
 // 3}] at row 16w + g + 8.
-template <int TransB>
+template <int TransA, int TransB>
 __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t desc_a,
                                                       uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -153,7 +184,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t desc_a,
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, %131;\n}\n"
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -170,7 +201,48 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float* d, uint64_t desc_a,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// -- host: TMA tensor maps --------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (the library links no libcuda); null where it is not found.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A row-major tensor of `rank` dims (innermost first), `elem` bytes an
+// element, tiled by `box`; zero fill outside it.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint32_t* box, int elem, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t strides[2] = {dims[0] * elem, dims[0] * dims[1] * elem};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

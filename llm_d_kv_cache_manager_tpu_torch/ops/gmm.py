@@ -303,23 +303,41 @@ def grouped_matmul_bf16_t(
     return out
 
 
-#: K6 (``csrc/grouped_matmul_tgmm.cu``): a block's output tile of [d, f]
-#: and its threads
-_TG_TILE, _TG_THREADS = 64, 128
+#: K6 (``csrc/grouped_matmul_tgmm.cu``): output tile (d rows, f columns),
+#: k tile (group rows), ring stages, threads (two consumer warpgroups + one
+#: producer), groups it takes
+_TG_TM, _TG_TN, _TG_TK, _TG_STAGES, _TG_THREADS, _TG_MAX_GROUPS = 128, 256, 64, 3, 384, 65535
 
 
-def plan_grouped_matmul_tgmm(n_groups: int, d: int, f: int) -> dict:
-    """K6's launch from integers alone: one block per (64 f columns, 64 d
-    rows, group), columns fastest."""
-    return {"grid": (-(-f // _TG_TILE), -(-d // _TG_TILE), n_groups),
-            "threads": _TG_THREADS, "tile": (_TG_TILE, _TG_TILE)}
+def plan_grouped_matmul_tgmm(n_groups: int, d: int, f: int, sm_count: int) -> dict:
+    """K6's launch from integers alone (never a tensor value, so the launch
+    never synchronises with the host): persistent blocks, one an SM and
+    never more than the tiles, walking ``tiles = n_groups * ceil(d / 128) *
+    ceil(f / 256)`` output tiles, group outermost. Shared memory: 1 KiB of
+    alignment slack, the ring (a stage: 64 rows of two 64-wide lhs boxes
+    and four 64-wide dout boxes, 8 KiB each), two 32 KiB staging tiles for
+    the epilogue's stores, two mbarriers a stage. Raises for the shapes the
+    kernel does not take: ``d`` and ``f`` positive multiples of 8 (16-byte
+    TMA strides), 1..65535 groups."""
+    if not 1 <= n_groups <= _TG_MAX_GROUPS:
+        raise ValueError(f"grouped_matmul_tgmm: {n_groups} groups, 1..{_TG_MAX_GROUPS} only")
+    if d < 8 or f < 8 or d % 8 or f % 8:
+        raise ValueError(f"grouped_matmul_tgmm: d = {d} and f = {f} must be positive "
+                         "multiples of 8")
+    tiles = n_groups * -(-d // _TG_TM) * -(-f // _TG_TN)
+    box = 64 * 128
+    stage = (_TG_TM // 64 + _TG_TN // 64) * box
+    smem = 1024 + _TG_STAGES * stage + 2 * (_TG_TN // 64) * box + 2 * _TG_STAGES * 8
+    return {"grid": (max(1, min(tiles, sm_count)), 1, 1), "threads": _TG_THREADS,
+            "tile": (_TG_TM, _TG_TN, _TG_TK), "stages": _TG_STAGES, "smem": smem,
+            "tiles": tiles}
 
 
 @functools.lru_cache(maxsize=None)
 def _tgmm_entry():
     fn = _build.load("grouped_matmul_tgmm").grouped_matmul_tgmm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return fn
 
 
@@ -338,7 +356,8 @@ def grouped_matmul_tgmm(
     rows, d = lhs.shape
     f = dout.shape[1]
     n_groups = group_sizes.shape[0] if group_sizes.dim() == 1 else 0
-    _check(1 <= n_groups <= 65535, name, "group_sizes must be [E], 1 <= E <= 65535")
+    _check(1 <= n_groups <= _TG_MAX_GROUPS, name,
+           f"group_sizes must be [E], 1 <= E <= {_TG_MAX_GROUPS}")
     _check(d % 8 == 0 and f % 8 == 0 and d > 0 and f > 0, name, "d % 8 and f % 8 must be 0")
     _check(lhs.dtype == torch.bfloat16 and dout.dtype == torch.bfloat16, name,
            "lhs and dout must be bfloat16")
@@ -350,10 +369,10 @@ def grouped_matmul_tgmm(
     if rows == 0:
         return torch.zeros((n_groups, d, f), dtype=torch.bfloat16, device=dev)
     out = torch.empty((n_groups, d, f), dtype=torch.bfloat16, device=dev)
-    plan = plan_grouped_matmul_tgmm(n_groups, d, f)
+    plan = plan_grouped_matmul_tgmm(n_groups, d, f, _sm_count(dev.index))
     err = _tgmm_entry()(
         lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-        rows, d, f, n_groups, torch.cuda.current_stream(dev).cuda_stream,
+        rows, d, f, n_groups, plan["grid"][0], torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(name, err)
     grouped_matmul_tgmm.last_plan = plan

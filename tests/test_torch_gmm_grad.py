@@ -184,9 +184,13 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_never_count():
 
 
 def test_plans_are_integers_only():
-    assert t_ops.plan_grouped_matmul_tgmm(128, 2048, 768) == {
-        "grid": (12, 32, 128), "threads": 128, "tile": (64, 64)}
-    assert t_ops.plan_grouped_matmul_tgmm(128, 768, 2048)["grid"] == (32, 12, 128)
+    # K6: persistent blocks, one an SM, over 128 d x 256 f tiles, group
+    # outermost: 128 groups x 16 x 3 (gate-up) or x 6 x 8 (down) tiles.
+    assert t_ops.plan_grouped_matmul_tgmm(128, 2048, 768, 132) == {
+        "grid": (132, 1, 1), "threads": 384, "tile": (128, 256, 64), "stages": 3,
+        "smem": 214064, "tiles": 6144}
+    assert t_ops.plan_grouped_matmul_tgmm(128, 768, 2048, 132)["tiles"] == 6144
+    assert t_ops.plan_grouped_matmul_tgmm(2, 128, 256, 132)["grid"] == (2, 1, 1)
     # K4^T always takes K4's prefill path, whose kernel alone reads rhs
     # transposed; K4 itself keeps its decode path for few rows.
     assert t_ops.plan_grouped_matmul(64, 128, 768, 2048, False, 132)["path"] == "decode"
