@@ -877,16 +877,22 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
 #: ``model`` (its preset name); ``quantize="int8"`` also quantizes the
 #: expert stacks; ``kv_quant_hbm="int8"`` keeps the KV pages as int8 codes
 #: and ``chunked_prefill`` sets the per-step prefill token budget (mixed
-#: prefill/decode steps).
+#: prefill/decode steps). ``sharded`` names the path that serves the same
+#: workload again at tp=2 on the same weights, after every other phase of
+#: its path (``sharded_path``); ``sp_prefill`` runs the sp=2 prefill
+#: (``sp_prefill``) on the path's weights.
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
          fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True,
-         fleet_controller=True, disagg_tiers=True, spec_decode=True),
-    dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None),
+         fleet_controller=True, disagg_tiers=True, spec_decode=True,
+         sharded="llama_3_8b_tp2", sp_prefill="llama_3_8b_sp2"),
+    dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None,
+         sharded="qwen3_30b_a3b_ep2"),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
-         fast_path=True),
+         fast_path=True, sharded="qwen3_30b_a3b_int8_ep2"),
     dict(label="llama_3_8b_kvq", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
-         kv_quant_hbm="int8", chunked_prefill=512, same_tokens_as="llama_3_8b"),
+         kv_quant_hbm="int8", chunked_prefill=512, same_tokens_as="llama_3_8b",
+         sharded="llama_3_8b_kvq_tp2"),
 )
 
 
@@ -1050,46 +1056,54 @@ def warm_vs_cold(models, llama, params, cfg, prompt, ps, dev, kv_quant_hbm=None)
     return out
 
 
-def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dict:
-    models, server, serve, kvblock = pkg["models"], pkg["server"], pkg["serve"], pkg["kvblock"]
-    cfg = serve._resolve_model(path["model"])
-    quantize = path["quantize"]
-    kv_quant_hbm = path.get("kv_quant_hbm")
-    ps, n_prompts, prompt_len, shared_len, new_tokens, n_repeats = 16, 8, 1024, 512, 32, 2
+#: the engine paths' workload: 8 prompts of 1024 tokens sharing a 512-token
+#: prefix, 32 greedy tokens each, then 2 of them again through the pod
+#: server (prefix-cache hits), on a 4096-page pool of 16-token pages
+PS, N_PROMPTS, PROMPT_LEN, SHARED_LEN, NEW_TOKENS, N_REPEATS = 16, 8, 1024, 512, 32, 2
 
-    torch.cuda.reset_peak_memory_stats()
-    t_phase = t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = models.init_params(cfg, gen, dev, quantize=quantize,
-                                quantize_experts=quantize is not None)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    events = []
-    eng = server.Engine(
+
+def workload_prompts(cfg) -> list:
+    rng = np.random.default_rng(SEED)
+    shared = rng.integers(0, cfg.vocab_size, SHARED_LEN).tolist()
+    return [shared + rng.integers(0, cfg.vocab_size, PROMPT_LEN - SHARED_LEN).tolist()
+            for _ in range(N_PROMPTS)]
+
+
+def workload_knobs(server, path: dict) -> dict:
+    """A path's engine knobs (``PATHS``)."""
+    quantize = path["quantize"]
+    return dict(quantize=quantize, quantize_experts=quantize is not None,
+                kv_quant_hbm=path.get("kv_quant_hbm"),
+                scheduler=server.SchedulerConfig(chunked_prefill_tokens=path.get("chunked_prefill")))
+
+
+def workload_engine(server, cfg, params, dev, events: list, mesh=None, **knobs):
+    """The engine the workload runs on (``mesh``: sharded, its first device
+    the engine's)."""
+    return server.Engine(
         server.EngineConfig(
             model=cfg,
-            block_manager=server.BlockManagerConfig(total_pages=4096, page_size=ps),
-            max_model_len=4096,
-            decode_batch_size=8,
-            seed=SEED,
-            quantize=quantize,
-            quantize_experts=quantize is not None,
-            kv_quant_hbm=kv_quant_hbm,
-            scheduler=server.SchedulerConfig(chunked_prefill_tokens=path.get("chunked_prefill")),
+            block_manager=server.BlockManagerConfig(total_pages=4096, page_size=PS),
+            max_model_len=4096, decode_batch_size=8, seed=SEED, **knobs,
         ),
-        params=params,
-        on_events=lambda evs: events.extend(evs),
-        device=dev,
+        params=params, on_events=lambda evs: events.extend(evs),
+        device=None if mesh is not None else dev, mesh=mesh,
     )
-    param_gib = models.param_bytes(eng.params) / 2**30
-    rng = np.random.default_rng(SEED)
-    shared = rng.integers(0, cfg.vocab_size, shared_len).tolist()
-    prompts = [
-        shared + rng.integers(0, cfg.vocab_size, prompt_len - shared_len).tolist()
-        for _ in range(n_prompts)
-    ]
+
+
+def serve_workload(pkg, ops, eng, cfg, model_name: str, label: str, events: list) -> dict:
+    """The main path of an engine path: every launch count set to 0, the
+    workload's first requests served by the engine directly, the repeats
+    through the pod server's request API and its engine-loop thread, the
+    counts read. Checks that every request got its tokens, that the
+    repeats hit the prefix cache and that every prompt block was published
+    as ``BlockStored``. Returns the requests, the launches, the dispatch
+    counts and the host time of each kind of step."""
+    server, serve, kvblock = pkg["server"], pkg["serve"], pkg["kvblock"]
+    prompts = workload_prompts(cfg)
+
     def greedy():
-        return server.SamplingParams(max_new_tokens=new_tokens)
+        return server.SamplingParams(max_new_tokens=NEW_TOKENS)
 
     # Step time by what the step dispatched: a prefill, a decode, or both
     # (a mixed step, with chunked prefill).
@@ -1120,58 +1134,100 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
                 phase["decode_capture_steps"] += 1
                 phase["decode_capture_tokens"] += running
 
-    # The main path: counts are zeroed just before it and read just after.
-    # The first requests go to the engine directly; the repeats, which hit
-    # the prefix cache, through the pod server's request API and its
-    # engine-loop thread.
     for wrapper in ops.COUNTED.values():
         wrapper.launches = 0
     first = [eng.add_request(p, greedy()) for p in prompts]
     drive()
     cold_computed = eng.prefill_stats["tokens_computed"]
-    pod = serve.PodServer(
-        serve.PodServerConfig(model_name=path["model"], publish_events=False), engine=eng
-    )
+    pod = serve.PodServer(serve.PodServerConfig(model_name=model_name, publish_events=False),
+                          engine=eng)
     pod.start()
     try:
-        futures = [pod.submit(prompts[i], greedy()) for i in range(n_repeats)]
+        futures = [pod.submit(prompts[i], greedy()) for i in range(N_REPEATS)]
         repeats = [f.result(timeout=600) for f in futures]
     finally:
         pod.shutdown()
     launches = {name: wrapper.launches for name, wrapper in ops.COUNTED.items()}
     torch.cuda.synchronize()
-    prefill_dispatches = eng.prefill_stats["dispatches"]
-    decode_dispatches = eng.decode_stats["dispatches"]
-    # The model steps the replays ran, and the warm-up's eager steps before
-    # the first capture (real launches).
-    decode_steps = eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps
+    out = dict(
+        prompts=prompts, first=first, repeats=repeats, launches=launches, phase=phase,
+        cold_computed=cold_computed,
+        warm_computed=eng.prefill_stats["tokens_computed"] - cold_computed,
+        prefill_dispatches=eng.prefill_stats["dispatches"],
+        decode_dispatches=eng.decode_stats["dispatches"],
+        # The model steps the replays ran, and the warm-up's eager steps
+        # before the first capture (real launches).
+        decode_steps=eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps,
+        tokens=[list(s.generated_tokens) for s in first + repeats],
+    )
 
     # Checks on what came out.
     for seq in first + repeats:
-        if seq.error or len(seq.generated_tokens) != new_tokens:
+        if seq.error or len(seq.generated_tokens) != NEW_TOKENS:
             fail(f"request {seq.seq_id} finished with {len(seq.generated_tokens)} tokens, error={seq.error}")
         if not all(0 <= t < cfg.vocab_size for t in seq.generated_tokens):
             fail("generated token id out of range")
-    warm_computed = eng.prefill_stats["tokens_computed"] - cold_computed
     for seq in repeats:
-        if seq.num_cached_prompt < prompt_len - ps:
+        if seq.num_cached_prompt < PROMPT_LEN - PS:
             fail(f"repeat served only {seq.num_cached_prompt} cached prompt tokens")
-    if warm_computed >= n_repeats * ps + 1:
-        fail(f"repeats recomputed {warm_computed} tokens despite the prefix hit")
-    stored = {h for e in events if type(e).__name__ == "BlockStored" for h in e.block_hashes}
-    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=ps))
+    if out["warm_computed"] >= N_REPEATS * PS + 1:
+        fail(f"repeats recomputed {out['warm_computed']} tokens despite the prefix hit")
+    out["stored"] = [h for e in events if type(e).__name__ == "BlockStored" for h in e.block_hashes]
+    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=PS))
     for p in prompts:
-        missing = [h for h in db.prefix_hashes(p) if h not in stored]
+        missing = [h for h in db.prefix_hashes(p) if h not in set(out["stored"])]
         if missing:
             fail(f"{len(missing)} prompt block hashes never published as BlockStored")
-    if prefill_dispatches == 0 or decode_dispatches == 0:
-        fail(f"{path['label']}: {prefill_dispatches} prefill and {decode_dispatches} decode dispatches")
+    if out["prefill_dispatches"] == 0 or out["decode_dispatches"] == 0:
+        fail(f"{label}: {out['prefill_dispatches']} prefill and {out['decode_dispatches']} "
+             f"decode dispatches")
+    return out
+
+
+def decode_rates(phase: dict) -> dict:
+    """Decode tokens over the steps that only decoded, all of them and
+    those that captured no graph."""
+    return {
+        "decode_tokens_per_s": phase["decode_tokens"] / phase["decode_s"],
+        "decode_tokens_per_s_replays": (phase["decode_tokens"] - phase["decode_capture_tokens"])
+        / (phase["decode_s"] - phase["decode_capture_s"]),
+    }
+
+
+def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dict:
+    models, server = pkg["models"], pkg["server"]
+    cfg = pkg["serve"]._resolve_model(path["model"])
+    quantize = path["quantize"]
+    kv_quant_hbm = path.get("kv_quant_hbm")
+    ps = PS
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = models.init_params(cfg, gen, dev, quantize=quantize,
+                                quantize_experts=quantize is not None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    events = []
+    t_serve = time.perf_counter()
+    eng = workload_engine(server, cfg, params, dev, events, **workload_knobs(server, path))
+    param_gib = models.param_bytes(eng.params) / 2**30
+    run = serve_workload(pkg, ops, eng, cfg, path["model"], path["label"], events)
+    run.update(seconds=time.perf_counter() - t_serve,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dispatch=eng.decode_stats["dispatch"])
+    prompts, first, repeats, launches, phase = (
+        run[k] for k in ("prompts", "first", "repeats", "launches", "phase"))
+    cold_computed, warm_computed = run["cold_computed"], run["warm_computed"]
+    prefill_dispatches, decode_dispatches = run["prefill_dispatches"], run["decode_dispatches"]
+    decode_steps = run["decode_steps"]
+    stored = set(run["stored"])
     if path.get("chunked_prefill") and phase["mixed_steps"] == 0:
         fail(f"{path['label']}: chunked prefill made no mixed prefill/decode step")
     expected = expected_launches(cfg, quantize, kv_quant_hbm, prefill_dispatches, decode_steps)
     if launches != expected:
         fail(f"{path['label']}: kernel launches {launches} != expected {expected}")
-    greedy_tokens[path["label"]] = [list(s.generated_tokens) for s in first + repeats]
+    greedy_tokens[path["label"]] = run["tokens"]
     same = path.get("same_tokens_as")
     extra = {}
     if same:
@@ -1187,7 +1243,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
 
     logits = warm_vs_cold(models, pkg["llama"], eng.params, cfg, prompts[0], ps, dev, kv_quant_hbm)
 
-    profile = profile_decode(eng, prompts, server, ops)
+    profile = run["profile"] = profile_decode(eng, prompts, server, ops)
     emit({
         "phase": "engine",
         "model": path["label"],
@@ -1202,7 +1258,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         "param_gib": param_gib,
         "requests": len(first) + len(repeats),
         "repeats_via_pod_server": len(repeats),
-        "new_tokens_each": new_tokens,
+        "new_tokens_each": NEW_TOKENS,
         "prefill_dispatches": prefill_dispatches,
         "decode_dispatches": decode_dispatches,
         "decode_steps_with_warmup": decode_steps,
@@ -1217,9 +1273,7 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         # Prefill tokens over the steps that prefilled (mixed ones too);
         # decode tokens over the steps that only decoded.
         "prefill_tokens_per_s": cold_computed / (phase["prefill_s"] + phase["mixed_s"]),
-        "decode_tokens_per_s": phase["decode_tokens"] / phase["decode_s"],
-        "decode_tokens_per_s_replays": (phase["decode_tokens"] - phase["decode_capture_tokens"])
-        / (phase["decode_s"] - phase["decode_capture_s"]),
+        **decode_rates(phase),
         **phase,
         "kv_pool_gib": sum(t.numel() * t.element_size() for t in
                            (eng.k_pages, eng.v_pages, eng.k_scales, eng.v_scales)
@@ -1264,6 +1318,16 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         label = path["label"] + "_spec_decode"
         result, by_path[label] = spec_decode(pkg, ops, dev, card, eng.params, cfg)
         emit(dict(result, path=label))
+    del eng
+    free_cuda()
+    if path.get("sharded"):
+        t0 = time.perf_counter()
+        line, by_path[path["sharded"]] = sharded_path(pkg, ops, dev, card, path, params, cfg, run)
+        emit(dict(line, phase_wall_s=time.perf_counter() - t0))
+    if path.get("sp_prefill"):
+        t0 = time.perf_counter()
+        line, by_path[path["sp_prefill"]] = sp_prefill(pkg, ops, dev, card, params, cfg)
+        emit(dict(line, path=path["sp_prefill"], phase_wall_s=time.perf_counter() - t0))
     return by_path
 
 
@@ -4374,25 +4438,35 @@ def plan_logit_error(pkg, eng, cfg, prompts, ps, dev, widths: tuple[int, int]) -
     return float((logits[0] - logits[1]).abs().max())
 
 
+def cold_logits(models, params, cfg, tokens, ps, dev, kv_mode=None, mesh=None) -> torch.Tensor:
+    """Next-token logits after ``tokens``: one cold prefill on a scratch
+    pool (per-shard pools under ``mesh``)."""
+    n = len(tokens)
+    pages = n // ps + 2
+    if mesh is not None:
+        from llm_d_kv_cache_manager_tpu_torch.parallel import init_kv_pools
+
+        pool = [p for p in init_kv_pools(cfg, pages, ps, mesh, kv_quant_hbm=kv_mode) if p is not None]
+    else:
+        pool = list(models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=kv_mode))
+        if kv_mode:
+            pool += list(models.init_kv_scales(cfg, pages, dev))
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+    return models.prefill(params, cfg, torch.tensor([list(tokens)], dtype=torch.int32, device=dev),
+                          pos, torch.ones_like(pos, dtype=torch.bool), pool[0], pool[1],
+                          table[pos.long() // ps], pos % ps,
+                          torch.zeros((1, 0), dtype=torch.int32, device=dev),
+                          torch.zeros((1,), dtype=torch.int32, device=dev), *pool[2:],
+                          mesh=mesh)[0][0]
+
+
 def top2_gap(pkg, eng, cfg, prompt, generated, ps, dev) -> dict:
     """The knobs-off model's top-2 logit gap at the first token of
     ``generated``'s continuation: one cold prefill of prompt ++ generated on
     a scratch pool."""
-    models = pkg["models"]
-    seq = list(prompt) + list(generated)
-    n = len(seq)
-    pages = n // ps + 2
-    kv_mode = eng.config.kv_quant_hbm
-    pool = list(models.init_kv_pages(cfg, pages, ps, dev, kv_quant_hbm=kv_mode))
-    if kv_mode:
-        pool += list(models.init_kv_scales(cfg, pages, dev))
-    table = torch.arange(1, pages, dtype=torch.int32, device=dev)
-    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
-    logits = models.prefill(eng.params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev),
-                            pos, torch.ones_like(pos, dtype=torch.bool), pool[0], pool[1],
-                            table[pos.long() // ps], pos % ps,
-                            torch.zeros((1, 0), dtype=torch.int32, device=dev),
-                            torch.zeros((1,), dtype=torch.int32, device=dev), *pool[2:])[0][0]
+    logits = cold_logits(pkg["models"], eng.params, cfg, list(prompt) + list(generated), ps, dev,
+                         eng.config.kv_quant_hbm)
     top = logits.topk(2)
     return {"top2_gap": float(top.values[0] - top.values[1]),
             "logit_range": float(logits.max() - logits.min()),
@@ -4725,6 +4799,375 @@ def spec_decode(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
         "profile_s": profile_s,
         "phase_wall_s": time.perf_counter() - t_phase,
     }, launches_sum
+
+
+# -- sharded serving: tensor, expert and sequence parallelism ----------------
+#: the sharded paths' tp: each path named by a ``PATHS`` entry's
+#: ``sharded`` serves that entry's workload again at this tp on the same
+#: weights, every shard on the card's one device
+SHARDED_TP = 2
+#: the sp path: one warm prefill of SP_CHUNK tokens over SP_CONTEXT tokens
+SP_CHUNK, SP_CONTEXT = 2048, 1024
+#: sharded logits against unsharded on the same input: the warm-vs-cold bar
+#: (a share of the unsharded logits' range); every reduction and every
+#: kernel call splits differently, so bf16 activations round at other places
+SHARDED_LOGITS_BAR = 0.05
+
+
+def same_device_mesh(tp: int = 1, sp: int = 1, dev=None):
+    from llm_d_kv_cache_manager_tpu_torch.parallel import MeshConfig, make_mesh
+
+    return make_mesh(MeshConfig(tp=tp, sp=sp), devices=[dev] * (tp * sp))
+
+
+def tp_logit_check(pkg, params, sharded, cfg, mesh, tokens, dev, kv_mode=None) -> dict:
+    """Next-token logits after ``tokens`` through the unsharded and the
+    sharded model (cold prefills). For an MoE also with the sharded pass's
+    routing pinned to the unsharded pass's: a near-tied router choice can
+    flip between the two, and a flipped expert moves the logits by far more
+    than rounding; the pinned reading is what the bar holds."""
+    models, llama = pkg["models"], pkg["llama"]
+    with moe_routing(llama) as routing:
+        one = cold_logits(models, params, cfg, tokens, PS, dev, kv_mode).float()
+    with moe_routing(llama) as routing_two:
+        two = cold_logits(models, sharded, cfg, tokens, PS, dev, kv_mode, mesh=mesh).float()
+    top = one.topk(2)
+    out = {"top2_gap": float(top.values[0] - top.values[1]), "top2_ids": top.indices.tolist(),
+           "logit_range": float(one.max() - one.min()),
+           "max_abs_diff": float((one - two).abs().max()),
+           "argmax_equal": int(one.argmax()) == int(two.argmax()), "routing_flips": 0}
+    out["pinned_max_abs_diff"] = out["max_abs_diff"]
+    if routing:
+        flips, gaps = routing_flips(routing, routing_two)
+        out["routing_flips"] = int(flips.sum())
+        out["router_gap_at_flips_max"] = float(gaps[flips].max()) if flips.any() else None
+        with moe_routing(llama, pinned=[ids for ids, _ in routing]):
+            pinned = cold_logits(models, sharded, cfg, tokens, PS, dev, kv_mode, mesh=mesh).float()
+        out["pinned_max_abs_diff"] = float((one - pinned).abs().max())
+    out["bar"] = SHARDED_LOGITS_BAR * out["logit_range"]
+    if not torch.isfinite(two).all() or out["pinned_max_abs_diff"] > out["bar"]:
+        fail(f"sharded logits differ from unsharded beyond {SHARDED_LOGITS_BAR} of the range: {out}")
+    return out
+
+
+def near_tie_gate(pkg, params, sharded, cfg, mesh, prompts, tok1, tok2, dev, kv_mode) -> list:
+    """tp=2 greedy tokens against tp=1's, by the near-tie rule: a request
+    may leave tp=1's stream only where the unsharded model's top-2 gap (one
+    cold prefill of the prompt and the tokens both agreed on) is at most
+    twice how far the sharded model's logits move from it on that input
+    with the MoE routing pinned (rounding alone), and where that move stays
+    within ``tp_logit_check``'s bar. In an MoE a request may also leave it
+    where the unpinned sharded pass flipped a near-tied router choice on
+    that input and the unpinned move is at least half the gap."""
+    diffs = []
+    for i, (a, b) in enumerate(zip(tok1, tok2)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        prompt = prompts[i % len(prompts)]
+        d = dict(tp_logit_check(pkg, params, sharded, cfg, mesh, list(prompt) + a[:j], dev, kv_mode),
+                 request=i, index=j, tp1=a[j], tp2=b[j])
+        diffs.append(d)
+        if d["top2_gap"] <= 2 * d["pinned_max_abs_diff"]:
+            d["explained_by"] = "logit near tie"
+        elif d["routing_flips"] and d["top2_gap"] <= 2 * d["max_abs_diff"]:
+            d["explained_by"] = "router near tie"
+        else:
+            fail(f"a tp=2 greedy token differs from tp=1's beyond a near tie: {d}")
+    return diffs
+
+
+def shard_kernel_holds(pkg, ops, cfg, sharded, mesh, dev, kv_mode=None) -> dict:
+    """Each kernel of the sharded path held against its plain version at a
+    shard's shapes: one warm prefill (2 rows, 512 and 300 tokens, the first
+    over 256 tokens of context) and one decode step through the sharded
+    model on a scratch pool, the first layer's calls of every shard (K2 in
+    the prefill, K1 or K1q in the decode step, and for an MoE the three K4
+    products in each) recorded as the model makes them, then each run
+    again through the kernel and, in float32, through its plain version
+    (tolerances as the kernels phase)."""
+    from llm_d_kv_cache_manager_tpu_torch.ops import gmm
+    from llm_d_kv_cache_manager_tpu_torch.parallel import init_kv_pools
+
+    models, llama = pkg["models"], pkg["llama"]
+    tp = mesh.shape["tp"]
+    pools = [p for p in init_kv_pools(cfg, 130, PS, mesh, kv_quant_hbm=kv_mode) if p is not None]
+    gen = torch.Generator().manual_seed(SEED)
+    tok = torch.randint(0, cfg.vocab_size, (2, 768), generator=gen).int().to(dev)
+
+    def prefill(tokens, starts, lens, s):
+        b = tokens.shape[0]
+        pos = torch.stack([torch.arange(st, st + s) for st in starts]).int().to(dev)
+        valid = (torch.arange(s)[None] < torch.tensor(lens)[:, None]).to(dev)
+        rows = torch.arange(b, device=dev)[:, None] * 64 + 1  # row r owns pages 64r + 1 ..
+        n_ctx = max(starts) // PS
+        ctx = (rows + torch.arange(n_ctx, device=dev)[None]).int()
+        ctx[torch.tensor(starts, device=dev) == 0] = 0
+        return models.prefill(sharded, cfg, tokens, pos, valid, *pools[:2],
+                              (rows + pos.long() // PS).int(), pos % PS, ctx,
+                              torch.tensor(starts, dtype=torch.int32, device=dev), *pools[2:],
+                              mesh=mesh)
+
+    prefill(tok[:1, :256], [0], [256], 256)  # row 0's context
+    recorded = {"flash_prefill": [], "paged_decode": [], "grouped_matmul": []}
+    originals = {"flash_prefill": llama.flash_prefill_paged, "paged_decode": llama.paged_attention,
+                 "grouped_matmul": gmm.grouped_matmul}
+    limits = {"flash_prefill": tp, "paged_decode": tp, "grouped_matmul": 3 * tp}
+    stage, taken = ["prefill"], {}
+
+    def recorder(kind):
+        def call(*args, **kw):
+            key = (kind, stage[0])
+            if taken.get(key, 0) < limits[kind]:
+                taken[key] = taken.get(key, 0) + 1
+                recorded[kind].append((args, kw))
+            return originals[kind](*args, **kw)
+        return call
+
+    llama.flash_prefill_paged = recorder("flash_prefill")
+    llama.paged_attention = recorder("paged_decode")
+    gmm.grouped_matmul = recorder("grouped_matmul")
+    try:
+        warm = torch.stack([tok[0, 256:768], tok[1, :512]])
+        prefill(warm, [256, 0], [512, 300], 512)
+        stage[0] = "decode"
+        lens = torch.tensor([769, 301], dtype=torch.int32, device=dev)
+        rows = torch.arange(2, device=dev)[:, None] * 64 + 1
+        tables = (rows + torch.arange(64, device=dev)[None]).int()
+        models.decode_step(sharded, cfg, tok[:, 0], lens - 1, *pools[:2], tables, lens,
+                           page_size=PS, k_scales=pools[2] if kv_mode else None,
+                           v_scales=pools[3] if kv_mode else None, mesh=mesh)
+    finally:
+        llama.flash_prefill_paged = originals["flash_prefill"]
+        llama.paged_attention = originals["paged_decode"]
+        gmm.grouped_matmul = originals["grouped_matmul"]
+
+    out = {}
+    for args, kw in recorded["flash_prefill"]:
+        name = "flash_prefill"
+        case = hold_prefill_form(ops, name, args, args[7].tolist())
+        out.setdefault(name, []).append(dict(case, q=list(args[0].shape), pool=list(args[3].shape)))
+    for args, kw in recorded["paged_decode"]:
+        q, k_pages, v_pages, bt, sl, fk, fv = args
+        quantized = kw.get("k_scale") is not None
+        name = "paged_decode_int8" if quantized else "paged_decode"
+        outk = originals["paged_decode"](*args, **kw)
+        wide_k, wide_v = ((models.dequantize_kv_pool(k_pages, kw["k_scale"], torch.float32),
+                           models.dequantize_kv_pool(v_pages, kw["v_scale"], torch.float32))
+                          if quantized else (k_pages, v_pages))
+        ref = ops.paged_attention_reference(q.float(), wide_k, wide_v, bt, sl, fk, fv, layer=kw["layer"])
+        out.setdefault(name, []).append(dict(held(outk, ref), q=list(q.shape),
+                                             pool=list(k_pages.shape)))
+    for args, kw in recorded["grouped_matmul"]:
+        lhs, rhs, gs = args
+        outk = originals["grouped_matmul"](*args, **kw)
+        if isinstance(rhs, models.QuantizedTensor):
+            name, rgi = "grouped_matmul_int8", kw["row_group_ids"]
+            ref = ops.grouped_matmul_plain(lhs.float(), rhs, gs, row_group_ids=rgi)
+            ref_abs = ops.grouped_matmul_plain(
+                lhs.float().abs(), models.QuantizedTensor(q=rhs.q.abs(), scale=rhs.scale), gs,
+                row_group_ids=rgi)
+        else:
+            name = "grouped_matmul_bf16"
+            ref = ops.grouped_matmul_plain(lhs.float(), rhs.float(), gs)
+            ref_abs = ops.grouped_matmul_plain(lhs.float().abs(), rhs.float().abs(), gs)
+        out.setdefault(name, []).append(dict(
+            held(outk, ref, ref_abs, abs_coef=lhs.shape[1] * F32_ULP), lhs=list(lhs.shape),
+            rhs=list(rhs.shape), nonempty_groups=int((gs > 0).sum())))
+    torch.cuda.synchronize()
+    if [len(c) for c in recorded.values()] != [tp, tp, 6 * tp if cfg.n_experts else 0]:
+        fail(f"recorded shard calls {[len(c) for c in recorded.values()]} for tp={tp}")
+    for name, cases in out.items():
+        if max(c["err_over_allowance"] for c in cases) > 1:
+            fail(f"{name} differs from its plain version at a shard's shapes beyond {TOL[name]}: {cases}")
+    del pools
+    return out
+
+
+def block_stored_match(pkg, prompts, one: dict, two: dict) -> dict:
+    """Two runs' ``BlockStored`` streams: the prompts' blocks, in order,
+    and the whole stream. A block that holds generated tokens differs where
+    the tokens do (the near-tie gate reads those; a repeat whose tokens
+    leave its first run's adds a block), so the whole stream must be equal
+    only when every token is."""
+    kvblock = pkg["kvblock"]
+    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=PS))
+    prompt_blocks = {h for p in prompts for h in db.prefix_hashes(p)}
+
+    def of_prompts(stored):
+        return [h for h in stored if h in prompt_blocks]
+
+    a, b = one["stored"], two["stored"]
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return {"hashes": [len(a), len(b)], "prompt_blocks": len(of_prompts(a)),
+            "prompt_blocks_equal": of_prompts(a) == of_prompts(b),
+            "all_equal": a == b, "first_difference": first}
+
+
+def reductions_ms(mesh, cfg, dev, lanes: int = 8) -> float:
+    """Device ms of one decode step's cross-shard work at ``lanes`` lanes:
+    the embedding sum, the ``wo`` and FFN sums of every layer, and the
+    gather of the vocabulary slices of the logits, captured as one CUDA
+    graph (as a decode burst runs them) and its replays timed by CUDA
+    events."""
+    coll = mesh.collective
+    tp = mesh.shape["tp"]
+    h = [torch.randn((lanes, 1, cfg.hidden_size), device=dev).to(cfg.dtype) for _ in range(tp)]
+    logits = [torch.randn((lanes, 1, cfg.vocab_size // tp), device=dev) for _ in range(tp)]
+
+    def step():
+        for _ in range(2 * cfg.n_layers + 1):
+            coll.sum(h, cfg.dtype)
+        coll.cat(logits, dim=-1)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()  # allocations made outside the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    return cuda_time_ms(graph.replay)
+
+
+def sharded_path(pkg, ops, dev, card: str, path: dict, params, cfg, one: dict) -> tuple[dict, dict]:
+    """One sharded path: ``path``'s workload at ``SHARDED_TP`` (every shard
+    on ``dev``) on the weights its tp=1 run (``one``, ``run_engine``'s)
+    served, with its exact launch counts (tp times tp=1's a layer) and a
+    decode profile; then its greedy tokens against tp=1's by the near-tie
+    rule, the same ``BlockStored`` stream, the sharded logits within the
+    bar, and each kernel held at a shard's shapes."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel import shard_params
+
+    server = pkg["server"]
+    kv_mode, quantize, tp = path.get("kv_quant_hbm"), path["quantize"], SHARDED_TP
+    label = path["sharded"]
+    mesh = same_device_mesh(tp=tp, dev=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    events = []
+    eng = workload_engine(server, cfg, params, dev, events, mesh=mesh, tp=tp,
+                          **workload_knobs(server, path))
+    two = serve_workload(pkg, ops, eng, cfg, path["model"], f"{label}", events)
+    expected = {k: v * tp for k, v in expected_launches(
+        cfg, quantize, kv_mode, two["prefill_dispatches"], two["decode_steps"]).items()}
+    if two["launches"] != expected:
+        fail(f"{label}: kernel launches {two['launches']} != expected {expected}")
+    two.update(seconds=time.perf_counter() - t, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               dispatch=eng.decode_stats["dispatch"])
+    two["profile"] = profile_decode(eng, two["prompts"], server, ops)
+    del eng
+    free_cuda()
+    if two["dispatch"] != "graph":
+        fail(f"{label}: decode bursts on one device ran {two['dispatch']}, not as graphs")
+    sharded = shard_params(params, mesh, cfg)
+    prompts = one["prompts"]
+    logits = tp_logit_check(pkg, params, sharded, cfg, mesh, prompts[0], dev, kv_mode)
+    diffs = near_tie_gate(pkg, params, sharded, cfg, mesh, prompts, one["tokens"], two["tokens"],
+                          dev, kv_mode)
+    stream = block_stored_match(pkg, prompts, one, two)
+    if not stream["prompt_blocks_equal"] or (not diffs and not stream["all_equal"]):
+        fail(f"{label}: the BlockStored stream differs from tp=1's: {stream}")
+    holds = shard_kernel_holds(pkg, ops, cfg, sharded, mesh, dev, kv_mode)
+    pairs = [(a, b) for sa, sb in zip(one["tokens"], two["tokens"]) for a, b in zip(sa, sb)]
+
+    def reading(run):
+        prof = run["profile"]
+        phase = run["phase"]
+        return dict(decode_rates(phase), seconds=run["seconds"],
+                    prefill_tokens_per_s=run["cold_computed"] / (phase["prefill_s"] + phase["mixed_s"]),
+                    peak_mem_gib=run["peak_mem_gib"], launches=run["launches"],
+                    prefill_dispatches=run["prefill_dispatches"], decode_steps=run["decode_steps"],
+                    device_idle_share=prof["device_idle_share"],
+                    step_wall_ms=prof["step_wall_ms"],
+                    device_busy_ms_per_step=prof["device_busy_ms_per_step"],
+                    top_kernels_ms_per_step=prof["top_kernels_ms_per_step"][:6])
+
+    line = {
+        "phase": "sharded", "path": label, "served_as": path["model"], "card": card,
+        "tp1_path": path["label"],
+        "tp": tp, "quantize": quantize, "kv_quant_hbm": kv_mode,
+        "chunked_prefill_tokens": path.get("chunked_prefill"),
+        "n_layers": cfg.n_layers, "devices": [str(d) for d in mesh.devices],
+        "collective": mesh.collective.name, "decode_dispatch": two["dispatch"],
+        "note": (f"every shard runs on {dev}: tp={tp} does the same work in smaller launches "
+                 "plus the reductions, so here it can only cost; readings, not a claim"),
+        "requests": len(one["tokens"]), "new_tokens_each": NEW_TOKENS,
+        "greedy_tokens_equal_share": sum(a == b for a, b in pairs) / len(pairs),
+        "greedy_requests_equal": sum(a == b for a, b in zip(one["tokens"], two["tokens"])),
+        "near_tie_diffs": diffs,
+        "block_stored": stream,
+        "cached_prompt_tokens_repeats": [s.num_cached_prompt for s in two["repeats"]],
+        "first_token_logits": logits,
+        "tp1": reading(one), f"tp{tp}": reading(two),
+        "reductions_device_ms_per_decode_step": reductions_ms(mesh, cfg, dev),
+        "shard_kernel_holds": holds,
+    }
+    return line, two["launches"]
+
+
+def sp_prefill(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """The sp path: one warm prefill of ``SP_CHUNK`` tokens over
+    ``SP_CONTEXT`` tokens of context at sp=2 (ring attention over the two
+    rows, both on ``dev``), its counts zeroed just before and read just
+    after, its logits held against the same prefill at sp=1 (K2) within
+    the sharded bar, and against the plain attention at sp=1 (reported).
+    The ring is plain PyTorch, as JAX's runs no Pallas kernel: the path
+    launches no counted kernel."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel import shard_params
+
+    models = pkg["models"]
+    mesh = same_device_mesh(sp=2, dev=dev)
+    sharded = shard_params(params, mesh, cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    n = SP_CONTEXT + SP_CHUNK
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen).int().to(dev)
+    pages = n // PS + 1
+    kp, vp = models.init_kv_pages(cfg, pages, PS, dev)
+    table = torch.arange(1, pages, dtype=torch.int32, device=dev)
+    pos = torch.arange(n, dtype=torch.int32, device=dev)[None]
+
+    def chunk(kp, vp, lo, hi, mesh=None, **kw):
+        p = pos[:, lo:hi]
+        return models.prefill(params if mesh is None else sharded, cfg, tokens[:, lo:hi], p,
+                              torch.ones_like(p, dtype=torch.bool),
+                              kp, vp, table[p.long() // PS], p % PS,
+                              table[: lo // PS][None].contiguous(),
+                              torch.tensor([lo], dtype=torch.int32, device=dev), mesh=mesh,
+                              **kw)[0][0]
+
+    chunk(kp, vp, 0, SP_CONTEXT)  # the context, at sp=1
+    pools = {name: (kp.clone(), vp.clone()) for name in ("sp2", "sp1", "sp1_xla")}
+    del kp, vp
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    sp2 = chunk(*pools["sp2"], SP_CONTEXT, n, mesh=mesh).float()
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    sp1 = chunk(*pools["sp1"], SP_CONTEXT, n).float()
+    xla = chunk(*pools["sp1_xla"], SP_CONTEXT, n, attn_impl="xla").float()
+    rng = float(sp1.max() - sp1.min())
+    out = {"phase": "sharded", "path": "llama_3_8b_sp2", "card": card, "sp": 2,
+           "devices": [str(d) for d in mesh.devices], "collective": mesh.collective.name,
+           "n_layers": cfg.n_layers, "chunk_tokens": SP_CHUNK, "context_tokens": SP_CONTEXT,
+           "launches": launches,
+           "max_abs_diff_vs_sp1": float((sp2 - sp1).abs().max()),
+           "max_abs_diff_vs_sp1_xla": float((sp2 - xla).abs().max()),
+           "bar": SHARDED_LOGITS_BAR * rng, "logit_range": rng,
+           "argmax_equal": int(sp2.argmax()) == int(sp1.argmax()),
+           "pools_max_abs_diff_vs_sp1": max(float((a.float() - b.float()).abs().max())
+                                            for a, b in zip(pools["sp2"], pools["sp1"]))}
+    if not torch.isfinite(sp2).all() or out["max_abs_diff_vs_sp1"] > out["bar"]:
+        fail(f"sp=2 prefill logits differ from sp=1's beyond the bar: {out}")
+    if any(launches.values()):
+        fail(f"the sp=2 prefill launched counted kernels: {launches}")
+    out["sp2_ms"] = cuda_time_ms(lambda: chunk(*pools["sp2"], SP_CONTEXT, n, mesh=mesh), iters=3, warmup=1)
+    out["sp1_ms"] = cuda_time_ms(lambda: chunk(*pools["sp1"], SP_CONTEXT, n), iters=3, warmup=1)
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del pools
+    free_cuda()
+    return out, launches
 
 
 # -- training through the routed MoE -------------------------------------------

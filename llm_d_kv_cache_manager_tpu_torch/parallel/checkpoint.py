@@ -10,7 +10,7 @@ strings, lists and dicts only. An int8 ``QuantizedTensor`` is saved as a
 plain ``{"q", "scale"}`` dict and rebuilt from ``cfg`` and ``quantize``:
 pass the ``quantize`` the params were made with, as in JAX. The train state
 holds the parameters, AdamW's state dict (its moments in each parameter's
-dtype) and the step. Restores onto a mesh are not ported (ROADMAP A15).
+dtype) and the step. Restores onto a mesh are not ported (ROADMAP A15c).
 """
 
 from __future__ import annotations
@@ -112,9 +112,9 @@ def load_train_state(
 ) -> TrainState:
     """Restore a train state onto ``device``: trainable parameters, an
     AdamW at ``lr`` holding the saved moments and step counts, and the
-    step. ``mesh`` is not ported (ROADMAP A15)."""
+    step. ``mesh`` is not ported (ROADMAP A15c)."""
     if mesh is not None:
-        raise NotImplementedError("restoring onto a mesh is not ported (ROADMAP A15)")
+        raise NotImplementedError("restoring onto a mesh is not ported (ROADMAP A15c)")
     saved = _read(path, device)
     params = trainable(_rebuild(saved["params"], cfg, None))
     optimizer = make_optimizer(params, lr)

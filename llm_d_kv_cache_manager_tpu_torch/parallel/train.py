@@ -9,7 +9,7 @@ launches K4^T and K6 on the card (the kernels megablox's ``custom_vjp``
 launches on a TPU). JAX donates the state to a jitted step and gets a new
 one back; here parameters and moments are updated in place and the same
 state object comes back with its step advanced. Expert parallelism and a
-mesh (``mesh=``) are not ported (ROADMAP A15).
+mesh (``mesh=``) are not ported (ROADMAP A15c).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class TrainState(NamedTuple):
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("training over a mesh is not ported (ROADMAP A15)")
+        raise NotImplementedError("training over a mesh is not ported (ROADMAP A15c)")
 
 
 def param_leaves(params: Params) -> list:
@@ -54,7 +54,8 @@ def _forward_logits(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, mesh
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     inv_freq = llama._inv_freq(cfg, tokens.device)
-    h = llama._embed(params, cfg, tokens)
+    sharded = llama._placed(params, None, tokens.device)  # one shard
+    h = llama._embed(sharded, cfg, tokens)
     for layer in params["layers"]:
         x = rms_norm(h, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         q, k, v = llama._qkv(layer, cfg, x)
@@ -64,7 +65,7 @@ def _forward_logits(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, mesh
         h = h + attn.reshape(b, s, -1) @ llama._w(layer["wo"], h.dtype)
         x = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
         h = h + llama._mlp(layer, cfg, x)
-    return llama._logits(params, cfg, h)
+    return llama._logits(sharded, cfg, h)
 
 
 def loss_fn(params: Params, cfg: LlamaConfig, tokens: torch.Tensor, mesh=None) -> torch.Tensor:

@@ -37,6 +37,9 @@ instead of some twenty kernel launches a layer a step.
   another graph's output buffer.
 - On CPU tensors the same code runs without capture: each replay runs the
   burst eagerly through the kernels' plain versions.
+- A sharded engine's bursts (``mesh``) are captured as today when every
+  shard shares one device. Shards on distinct devices cannot share one
+  graph: their bursts run eagerly, and ``capture`` is False.
 
 A capture or replay failure raises; there is no eager fallback on CUDA.
 """
@@ -125,17 +128,21 @@ class DecodeGraphs:
 
     def __init__(self, params, cfg, k_pages, v_pages, k_scales, v_scales, *,
                  lanes: int, max_pages: int, page_size: int,
-                 generator: torch.Generator, device: torch.device, chain: bool):
+                 generator: torch.Generator, device: torch.device, chain: bool,
+                 mesh=None):
         """``max_pages``: the widest block table a burst may pass.
         ``chain``: after each replay, copy the last sampled column into the
-        token input (the pipelined engine's next burst reads it there)."""
-        self.params, self.cfg = params, cfg
+        token input (the pipelined engine's next burst reads it there).
+        ``mesh``: the engine's mesh (``device`` is its first device)."""
+        self.params, self.cfg, self.mesh = params, cfg, mesh
         self._pools = dict(k_pages=k_pages, v_pages=v_pages, k_scales=k_scales, v_scales=v_scales)
         self.lanes, self.page_size = lanes, page_size
         self.device = device
         self._generator = generator
         self._chain = chain
         self._cuda = device.type == "cuda"
+        #: bursts are CUDA graph replays (else each runs eagerly)
+        self.capture = self._cuda and (mesh is None or len(set(mesh.devices)) == 1)
         self._inputs = {name: torch.zeros(lanes, dtype=torch.int32, device=device)
                         for name in _INT_INPUTS}
         self._inputs.update({name: torch.zeros(lanes, dtype=torch.float32, device=device)
@@ -184,7 +191,7 @@ class DecodeGraphs:
             pools["k_pages"], pools["v_pages"], table, inputs["seq_lens"],
             inputs["temperature"], inputs["top_k"], inputs["top_p"], self._generator,
             page_size=self.page_size, num_steps=k,
-            k_scales=pools["k_scales"], v_scales=pools["v_scales"],
+            k_scales=pools["k_scales"], v_scales=pools["v_scales"], mesh=self.mesh,
         )[0]
 
     def _warmup(self, k: int, width: int) -> None:
@@ -212,7 +219,7 @@ class DecodeGraphs:
         def fn():
             return self._burst(k, self._inputs, table)
 
-        if not self._cuda:
+        if not self.capture:
             return CapturedBurst(None, fn)
         if not self.warmup_steps:
             self._warmup(k, width)

@@ -31,8 +31,8 @@ preemption), and speculative decoding (``spec_decode="prompt_lookup"`` and
 the ``spec_*`` knobs: prompt-lookup proposals verified by a warm prefill
 over [last token ++ drafts] through the flash-prefill kernel, with
 acceptance and ``spec_sample`` on the device, ``spec_rounds`` rounds a
-host sync; see ``_run_decode_spec``). TP/SP are for more than one GPU;
-their config fields do not exist here.
+host sync; see ``_run_decode_spec``), and sharded serving (``tp``,
+``sp``, ``mesh=``: see "Meshes" below).
 
 Shapes stay bucketed as in the JAX engine (prefill batch padded to
 ``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
@@ -42,7 +42,24 @@ slot 0).
 
 The engine runs on CUDA (prefill through the flash-prefill kernel, decode
 through the paged-decode kernel) unless it is built with ``device="cpu"``,
-which runs the kernels' plain PyTorch versions. Every decode burst goes
+which runs the kernels' plain PyTorch versions. ``prefill_attn`` is JAX's:
+``"auto"`` is the kernel on CUDA (on int8 pages too: the kernel path
+widens the context pages first) and ``"xla"`` (the plain attention)
+elsewhere.
+
+Meshes. With ``tp > 1`` or ``sp > 1`` one engine drives a
+``parallel.make_mesh`` mesh of ``sp × tp`` shards (default: the first
+``sp * tp`` CUDA devices; ``mesh=`` passes one, e.g. every shard on one
+device): parameters are ``parallel.shard_params``' per-shard trees, the KV
+pools per-tp-shard lists on the first row's devices (``init_kv_pools``),
+and prefill, decode and the verify rounds run the model's ``mesh=`` path.
+The block manager, the scheduler and the KV-event stream stay single: one
+pod publishes one stream. ``self.device`` is the first shard's device,
+where the logits are sampled. Decode bursts are captured as CUDA graphs
+when every shard shares one device; shards on distinct devices run each
+burst eagerly (``decode_stats["dispatch"]`` says which). The host-DRAM
+tier, the remote tier and KV transfer move whole pages and are refused
+over a mesh. Every decode burst goes
 through ``DecodeGraphs`` (``server/decode_graphs.py``): on CUDA one graph
 replay a burst, captured per (k, block-table width); on the CPU the same
 code without capture.
@@ -127,6 +144,8 @@ import torch
 from ..kvcache.kvevents.events import Event
 from ..models import llama, quant
 from ..models.llama import LlamaConfig
+from ..parallel.mesh import MeshConfig, make_mesh
+from ..parallel.sharding import ShardedParams, init_kv_pools, shard_params
 from ..utils import get_logger
 from .block_manager import AllocationError, BlockManager, BlockManagerConfig
 from .decode_graphs import DecodeGraphs
@@ -349,6 +368,20 @@ class EngineConfig:
     #: digest side-table capacity in entries (LRU); read only with
     #: ``kv_integrity`` on
     kv_integrity_table_cap: int = 65536
+    #: tensor-parallel degree (``TP``): attention heads, FFN width, experts
+    #: and vocabulary split over tp shards (``parallel/sharding.py``), the
+    #: KV pools head-parallel. Requires n_heads % tp == 0 and
+    #: n_kv_heads % tp == 0.
+    tp: int = 1
+    #: sequence-parallel degree for prefill (``SP``): the chunk is split
+    #: over sp rows and attended by ring attention with an exact
+    #: paged-context merge; decode stays tp-only. Composes with tp;
+    #: requires sp | prefill_bucket.
+    sp: int = 1
+    #: prefill attention: "auto" (the flash-prefill kernel on CUDA, the
+    #: plain attention elsewhere), "pallas" (the kernel's path) or "xla"
+    #: (the plain attention, masked token by token)
+    prefill_attn: str = "auto"
     seed: int = 0
 
 
@@ -359,14 +392,20 @@ class Engine:
         params=None,
         on_events: Optional[Callable[[list[Event]], None]] = None,
         device=None,
+        mesh=None,
     ):
         """``params``: a parameter dict on ``device`` (``models.init_params``
         / ``models.params_from_jax``); None random-initialises from
         ``config.seed``. ``device``: None = the current CUDA device (raises
-        when there is none), ``"cpu"`` = plain PyTorch on the CPU."""
+        when there is none), ``"cpu"`` = plain PyTorch on the CPU.
+        ``mesh``: a ``parallel.make_mesh`` mesh whose sp and tp match the
+        config (its first device is the engine's; ``device`` must then be
+        None or that device); None with tp or sp > 1 builds one over the
+        first ``sp * tp`` CUDA devices."""
         self.config = config
-        self.device = resolve_device(device)
         cfg = config.model
+        self.mesh = self._make_mesh(config, mesh, device)
+        self.device = self.mesh.root if self.mesh is not None else resolve_device(device)
         self.model_cfg = cfg
         ps = config.block_manager.page_size
         self.page_size = ps
@@ -428,6 +467,12 @@ class Engine:
                 # The verify rounds read pages full-width through the
                 # flash-prefill kernel: refuse rather than quietly widen.
                 raise ValueError("kv_quant_hbm is incompatible with spec_decode")
+        if config.prefill_attn not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown prefill_attn {config.prefill_attn!r}")
+        #: the prefill attention actually run ("auto" resolved)
+        self.prefill_attn = config.prefill_attn
+        if self.prefill_attn == "auto":
+            self.prefill_attn = "pallas" if self.device.type == "cuda" else "xla"
         if config.kv_quant is not None and config.kv_quant not in quant.KV_QUANT_MODES:
             raise ValueError(f"unknown kv_quant mode {config.kv_quant!r}")
         hp = config.block_manager.host_pages
@@ -439,6 +484,9 @@ class Engine:
                 cfg, gen, self.device,
                 quantize=config.quantize, quantize_experts=config.quantize_experts,
             )
+        elif isinstance(params, ShardedParams):
+            if self.mesh is None or params.mesh.grid != self.mesh.grid:
+                raise ValueError("params are sharded over another mesh than the engine's")
         elif params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, engine device is {self.device}"
@@ -455,19 +503,30 @@ class Engine:
                     f"quantize={config.quantize!r}, quantize_experts="
                     f"{config.quantize_experts} asks for"
                 )
+        if self.mesh is not None:
+            # A tree on the first shard's device: its slices are views
+            # wherever a shard shares that device.
+            params = shard_params(params, self.mesh, cfg)
         self.params = params
-        # Updated in place by every prefill / decode dispatch.
-        self.k_pages, self.v_pages = llama.init_kv_pages(
-            cfg, config.block_manager.total_pages, ps, self.device,
-            kv_quant_hbm=config.kv_quant_hbm,
-        )
-        # Scale pools of the int8 pages (None when the knob is off).
+        # Updated in place by every prefill / decode dispatch. Under a mesh
+        # each is a per-tp-shard list.
         self.k_scales: Optional[torch.Tensor] = None
         self.v_scales: Optional[torch.Tensor] = None
-        if config.kv_quant_hbm == "int8":
-            self.k_scales, self.v_scales = llama.init_kv_scales(
-                cfg, config.block_manager.total_pages, self.device
+        if self.mesh is not None:
+            self.k_pages, self.v_pages, self.k_scales, self.v_scales = init_kv_pools(
+                cfg, config.block_manager.total_pages, ps, self.mesh,
+                kv_quant_hbm=config.kv_quant_hbm,
             )
+        else:
+            self.k_pages, self.v_pages = llama.init_kv_pages(
+                cfg, config.block_manager.total_pages, ps, self.device,
+                kv_quant_hbm=config.kv_quant_hbm,
+            )
+            # Scale pools of the int8 pages (None when the knob is off).
+            if config.kv_quant_hbm == "int8":
+                self.k_scales, self.v_scales = llama.init_kv_scales(
+                    cfg, config.block_manager.total_pages, self.device
+                )
         self._init_host_tier()
         #: prefill observability: tokens actually pushed through prefill
         #: dispatches (prefix-cache hits reduce it) and dispatch count.
@@ -491,9 +550,11 @@ class Engine:
         }
         self._init_fleet_tiers()
         #: decode dispatches (a mixed step makes one prefill and one decode
-        #: dispatch, so engine steps do not count them) and the model steps
-        #: they ran (``decode_steps_per_iter`` a dispatch)
-        self.decode_stats = {"dispatches": 0, "steps": 0}
+        #: dispatch, so engine steps do not count them), the model steps
+        #: they ran (``decode_steps_per_iter`` a dispatch), and how a burst
+        #: is dispatched ("graph": one CUDA graph replay; "eager": the CPU,
+        #: or shards on distinct devices)
+        self.decode_stats = {"dispatches": 0, "steps": 0, "dispatch": ""}
         #: speculative decoding: proposed and accepted draft tokens, verify
         #: rounds and host-sync bursts (acceptance rate = accepted /
         #: proposed; rounds a sync = verify_steps / bursts)
@@ -506,8 +567,9 @@ class Engine:
             self.params, cfg, self.k_pages, self.v_pages, self.k_scales, self.v_scales,
             lanes=config.decode_batch_size, max_pages=self.max_pages_per_seq,
             page_size=ps, generator=self._generator, device=self.device,
-            chain=self._pipeline,
+            chain=self._pipeline, mesh=self.mesh,
         )
+        self.decode_stats["dispatch"] = "graph" if self.decode_graphs.capture else "eager"
         #: in-flight decode burst (pipelined): its sampled ids on their way
         #: to the host, the lane-ordered active list, and the np
         #: position/len arrays the NEXT burst derives from.
@@ -547,6 +609,48 @@ class Engine:
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    @staticmethod
+    def _make_mesh(config: EngineConfig, mesh, device):
+        """The engine's mesh (None for one device), with JAX's checks."""
+        cfg = config.model
+        if config.tp < 1 or config.sp < 1:
+            raise ValueError(f"tp={config.tp} and sp={config.sp} must be >= 1")
+        if config.kv_quant_hbm is not None and config.sp > 1:
+            # The ring reads context pages full-width.
+            raise ValueError("kv_quant_hbm is incompatible with sp > 1")
+        if config.tp == 1 and config.sp == 1:
+            if mesh is not None and len(mesh.devices) != 1:
+                raise ValueError(f"a mesh of {len(mesh.devices)} devices for tp=1, sp=1")
+            return None
+        if cfg.n_heads % config.tp or cfg.n_kv_heads % config.tp:
+            raise ValueError(
+                f"tp={config.tp} must divide n_heads={cfg.n_heads} and "
+                f"n_kv_heads={cfg.n_kv_heads}"
+            )
+        if config.sp > 1 and config.prefill_bucket % config.sp:
+            raise ValueError(
+                f"sp={config.sp} must divide prefill_bucket={config.prefill_bucket} "
+                f"(chunk lengths are bucket multiples and must shard evenly)"
+            )
+        # These move whole pages between the pools and host or wire bytes;
+        # their movers are not written for per-shard pools.
+        if config.block_manager.host_pages > 0 or config.remote_tier:
+            raise ValueError("the host-DRAM and remote tiers are not ported to sharded pools "
+                             "(tp or sp > 1)")
+        if mesh is None:
+            return make_mesh(MeshConfig(dp=1, sp=config.sp, tp=config.tp))
+        if mesh.shape["sp"] != config.sp or mesh.shape["tp"] != config.tp:
+            raise ValueError(
+                f"provided mesh {mesh.shape} does not match config sp={config.sp}, tp={config.tp}"
+            )
+        if device is not None and torch.device(device) != mesh.root:
+            raise ValueError(f"device {device} is not the mesh's first device {mesh.root}")
+        return mesh
+
+    def _no_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} is not ported to sharded pools (tp or sp > 1)")
 
     # -- host-DRAM tier -----------------------------------------------------
     def _init_host_tier(self) -> None:
@@ -1335,6 +1439,7 @@ class Engine:
         from ..kvcache.integrity import CHECK_CORRUPT, page_digest
         from ..kvcache.transfer.protocol import BlockPayload
 
+        self._no_mesh("KV export")
         self._flush_page_moves()
         chain = self.block_manager.lookup_chain(hashes, max_blocks)
         # The remote store serves the rest of the run from its wire-ready
@@ -1416,6 +1521,7 @@ class Engine:
         from, named in the log of a rejection and, with ``kv_integrity``, in
         the ``BadBlock`` published when a payload fails its carried digest
         (the import then stops there)."""
+        self._no_mesh("KV import")
         from ..kvcache.kvblock.token_processor import hash_block
 
         if allow_evict is None:
@@ -1853,6 +1959,8 @@ class Engine:
             self._to_device(ctx_lens),
             k_scales=self.k_scales,
             v_scales=self.v_scales,
+            attn_impl=self.prefill_attn,
+            mesh=self.mesh,
         )[0]
         first_tokens = self._sample(logits, seqs)  # syncs the dispatch
         # Prefill-rate sample of the cost model: chunk tokens over the
@@ -2132,7 +2240,8 @@ class Engine:
         k = self.config.spec_k
         rounds = self.config.spec_rounds
         # Lane-aligned verify chunk (no sequence parallelism here).
-        s_chunk = _round_up(k + 1, 8)
+        # Lane-aligned, and a multiple of sp so the chunk splits evenly.
+        s_chunk = _round_up(k + 1, math.lcm(8, self.config.sp))
         b = self.config.decode_batch_size
         if len(seqs) > b:
             raise RuntimeError(f"{len(seqs)} running sequences exceed {b} decode lanes")
@@ -2218,6 +2327,8 @@ class Engine:
             # streams elsewhere in the run do not shift because a greedy
             # lane speculated.
             sampled=bool((fparams[:, 0] > 0).any()),
+            attn_impl=self.prefill_attn,
+            mesh=self.mesh,
         )[0]
         # The one host sync of the burst: one fetch of the packed result.
         t_fetch = time.perf_counter() if self.obs_step_timing else 0.0

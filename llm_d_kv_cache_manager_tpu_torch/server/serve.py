@@ -1111,6 +1111,10 @@ class PodServerConfig:
         # Chunked prefill: a per-step prompt-token budget; 0 or unset = off.
         cpt = int(os.environ.get("CHUNKED_PREFILL_TOKENS", 0))
         eng.scheduler.chunked_prefill_tokens = cpt if cpt > 0 else None
+        # Sharded serving: tensor- and sequence-parallel degrees (1 = one
+        # device; more needs as many GPUs, or the engine raises).
+        eng.tp = int(os.environ.get("TP", eng.tp))
+        eng.sp = int(os.environ.get("SP", eng.sp))
         # The remote tier and the integrity plane reach the engine through
         # its own config.
         eng.remote_tier = cfg.remote_tier
@@ -3360,12 +3364,18 @@ class PodServer:
             if self.integrity is not None:
                 # Integrity block only with KV_INTEGRITY on.
                 payload["integrity"] = self.integrity.snapshot()
+            if self.engine.mesh is not None:
+                # Only on a sharded pod (TP or SP > 1): the shards' devices,
+                # the collective between them and how decode dispatches.
+                payload["mesh"] = dict(self.engine.mesh.describe(),
+                                       decode_dispatch=self.engine.decode_stats["dispatch"])
             if self.config.engine.kv_quant_hbm is not None:
                 # Only when the device-page quant knob is on.
                 payload["kv_quant_hbm"] = {
                     "mode": self.config.engine.kv_quant_hbm,
                     "total_pages": bm.config.total_pages,
-                    "pool_dtype": str(self.engine.k_pages.dtype),
+                    "pool_dtype": str((self.engine.k_pages[0] if self.engine.mesh is not None
+                                       else self.engine.k_pages).dtype),
                 }
             if self.config.obs_tracing or self.config.obs_metrics:
                 # Only with an OBS_* knob on.
