@@ -519,8 +519,10 @@ def check_flash_prefill(ops, dev, gen, n_kv=8):
 MOE_E, MOE_TOPK = 128, 8
 GMM_WIDTHS = {"gate_up": (2048, 768), "down": (768, 2048)}
 #: call forms held against the plain version; the first three also timed
-GMM_FORMS = ("prefill", "decode", "edge", "one_expert", "ragged")
+GMM_FORMS = ("prefill", "decode", "edge", "one_expert", "ragged", "train_ep")
 GMM_TIMED = ("prefill", "decode", "edge")
+#: the expert-parallel training form: one of two expert shards' groups
+EP_SHARDS = 2
 
 
 def gmm_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
@@ -532,7 +534,15 @@ def gmm_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
     group, the other 127 empty (the persistent walk over many tiles of one
     group). ragged: sizes 1..700 from the seeded generator and 37 rows past
     the last group (tiles that straddle the next group, and the zero
-    tail)."""
+    tail). train_ep: the expert-parallel training form, the training
+    batch's 2,048 tokens routed by top-8 of random router logits over 128
+    experts and kept for the first of two expert shards: 64 groups, and
+    about half the 16,384 rows past the last group (the other shard's)."""
+    if form == "train_ep":
+        logits = torch.randn((TRAIN_BATCH * TRAIN_SEQ, MOE_E), generator=gen, device=dev)
+        ids = logits.topk(MOE_TOPK, dim=-1).indices.reshape(-1)
+        sizes = torch.bincount(ids, minlength=MOE_E)[: MOE_E // EP_SHARDS]
+        return sizes.tolist(), TRAIN_BATCH * TRAIN_SEQ * MOE_TOPK
     if form == "edge":
         sizes = torch.randint(0, 16, (MOE_E,), generator=gen, device=dev).tolist()
         sizes[0] = sizes[-1] = sizes[MOE_E // 2] = 0
@@ -585,6 +595,16 @@ def host_enqueue_us(fn, calls: int = 50) -> float:
     return float(np.median(times))
 
 
+def first_groups(models, stack, n: int):
+    """The first ``n`` experts of a stack (bf16, or int8 codes with their
+    scales): one expert shard's, a view."""
+    if n == stack.shape[0]:
+        return stack
+    if isinstance(stack, models.QuantizedTensor):
+        return models.QuantizedTensor(q=stack.q[:n], scale=stack.scale[:n])
+    return stack[:n]
+
+
 def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
     """K4 (bf16 experts) and K5 (int8 experts) at Qwen3-30B-A3B widths,
     gate/up and down, in every ``GMM_FORMS`` form: each held element by
@@ -599,14 +619,15 @@ def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
         stacks = {"grouped_matmul_bf16": w, "grouped_matmul_int8": models.quantize_tensor(w)}
         for form in GMM_FORMS:
             sizes, rows = gmm_group_sizes(form, gen, dev)
-            in_groups = sum(sizes)
+            n_groups, in_groups = len(sizes), sum(sizes)
             gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
-            rgi = torch.repeat_interleave(torch.arange(MOE_E, device=dev), gs.long())
-            rgi = torch.cat([rgi, torch.full((rows - in_groups,), MOE_E - 1, device=dev)]).int()
+            rgi = torch.repeat_interleave(torch.arange(n_groups, device=dev), gs.long())
+            rgi = torch.cat([rgi, torch.full((rows - in_groups,), n_groups - 1, device=dev)]).int()
             lhs = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             nonempty = sum(1 for n in sizes if n > 0)
-            for name, rhs in stacks.items():
+            for name, full in stacks.items():
                 quantized = name == "grouped_matmul_int8"
+                rhs = first_groups(models, full, n_groups)
                 call = lambda: ops.grouped_matmul(lhs, rhs, gs, row_group_ids=rgi)  # noqa: E731
                 out = call()
                 if quantized:
@@ -626,8 +647,8 @@ def check_grouped_matmul(ops, models, dev, gen) -> list[dict]:
                 if not (call() == out).all():
                     fail(f"{name}: two calls on the same inputs differ ({form}/{width})")
                 del ref, ref_abs, out
-                entry = dict(case, rows=rows, d=d, f=f, nonempty_groups=nonempty,
-                             max_group=max(sizes), plan=plan)
+                entry = dict(case, rows=rows, in_groups=in_groups, groups=n_groups, d=d, f=f,
+                             nonempty_groups=nonempty, max_group=max(sizes), plan=plan)
                 results[name][f"{form}/{width}"] = entry
                 if form not in GMM_TIMED:
                     continue
@@ -735,7 +756,7 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 1024
 #: held on the even groups (K6's slices, K4^T's rows), so a value of a
 #: neighbouring group must not leak into a held one; all held, the first
 #: also timed
-GMM_BWD_FORMS = ("train", "decode", "edge", "ragged", "nan_neighbours")
+GMM_BWD_FORMS = ("train", "train_ep", "decode", "edge", "ragged", "nan_neighbours")
 #: an off-tile width (d, f): multiples of 8 but of neither K6's 128 x 256
 #: output tile nor its 64-wide boxes, held in the forms after it
 GMM_BWD_OFF_TILE = ((200, 264), ("ragged", "nan_neighbours"))
@@ -745,7 +766,8 @@ def gmm_bwd_group_sizes(form: str, gen, dev) -> tuple[list[int], int]:
     """Rows per expert and the row count: "train" routes the training
     batch's 2,048 tokens by top-8 of random router logits (16,384 rows, all
     in groups, as ``_moe_mlp_routed`` routes them); the others as in
-    ``gmm_group_sizes`` ("nan_neighbours" as "ragged")."""
+    ``gmm_group_sizes`` ("nan_neighbours" as "ragged"; "train_ep" one expert
+    shard's 64 groups, about half the rows past the last)."""
     if form != "train":
         return gmm_group_sizes("ragged" if form == "nan_neighbours" else form, gen, dev)
     logits = torch.randn((TRAIN_BATCH * TRAIN_SEQ, MOE_E), generator=gen, device=dev)
@@ -768,19 +790,21 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
     results = {"grouped_matmul_bf16_t": {}, "grouped_matmul_tgmm": {}}
     off_tile, off_tile_forms = GMM_BWD_OFF_TILE
     for width, (d, f) in dict(GMM_WIDTHS, off_tile=off_tile).items():
-        rhs = (torch.randn((MOE_E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
+        stack = (torch.randn((MOE_E, d, f), generator=gen, device=dev) * d**-0.5).to(bf)
         for form in off_tile_forms if width == "off_tile" else GMM_BWD_FORMS:
             sizes, rows = gmm_bwd_group_sizes(form, gen, dev)
+            n_groups = len(sizes)
+            rhs = stack[:n_groups]
             in_groups, nonempty, max_group = sum(sizes), sum(1 for n in sizes if n > 0), max(sizes)
             gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
             lhs = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             dout = torch.randn((rows, f), generator=gen, device=dev).to(bf)
             # The held part of each output: K6's groups and K4^T's rows.
-            keep = {"grouped_matmul_tgmm": torch.arange(MOE_E, device=dev),
+            keep = {"grouped_matmul_tgmm": torch.arange(n_groups, device=dev),
                     "grouped_matmul_bf16_t": torch.arange(rows, device=dev)}
             if form == "nan_neighbours":
                 owner = torch.full((rows,), -1, dtype=torch.long, device=dev)
-                owner[:in_groups] = torch.repeat_interleave(torch.arange(MOE_E, device=dev), gs.long())
+                owner[:in_groups] = torch.repeat_interleave(torch.arange(n_groups, device=dev), gs.long())
                 poisoned = (owner < 0) | (owner % 2 == 1)
                 lhs[poisoned] = float("nan")
                 dout[poisoned] = float("nan")
@@ -810,7 +834,7 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
                 if not torch.equal(call().view(torch.int16), out.view(torch.int16)):
                     fail(f"{name}: two calls on the same inputs differ ({form}/{width})")
                 del ref, ref_abs, out
-                entry = dict(case, rows=rows, in_groups=in_groups, d=d, f=f,
+                entry = dict(case, rows=rows, in_groups=in_groups, groups=n_groups, d=d, f=f,
                              nonempty_groups=nonempty, max_group=max_group, held=int(idx.numel()),
                              plan=getattr(ops, name).last_plan)
                 results[name][f"{form}/{width}"] = entry
@@ -829,7 +853,7 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
                 entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=library_ms, library_note=library_note)
             del lhs, dout
-        del rhs
+        del rhs, stack
         free_cuda()
     entries = []
     for name, forms in results.items():
@@ -880,12 +904,15 @@ def check_grouped_matmul_backward(ops, dev, gen) -> list[dict]:
 #: prefill/decode steps). ``sharded`` names the path that serves the same
 #: workload again at tp=2 on the same weights, after every other phase of
 #: its path (``sharded_path``); ``sp_prefill`` runs the sp=2 prefill
-#: (``sp_prefill``) on the path's weights.
+#: (``sp_prefill``) on the path's weights; ``tp2_tiers`` and
+#: ``tp2_transfer`` move pages between a tp=2 engine's sharded pools and
+#: the host tier (``tp2_tiers``) or the wire (``tp2_transfer``).
 PATHS = (
     dict(label="llama_3_8b", model="meta-llama/Llama-3.1-8B-Instruct", quantize=None,
          fast_path=True, host_tier=True, kv_transfer=True, scoring=True, fleet=True,
          fleet_controller=True, disagg_tiers=True, spec_decode=True,
-         sharded="llama_3_8b_tp2", sp_prefill="llama_3_8b_sp2"),
+         sharded="llama_3_8b_tp2", sp_prefill="llama_3_8b_sp2",
+         tp2_tiers="llama_3_8b_tp2_tiers", tp2_transfer="llama_3_8b_tp2_transfer"),
     dict(label="qwen3_30b_a3b", model="Qwen/Qwen3-30B-A3B", quantize=None,
          sharded="qwen3_30b_a3b_ep2"),
     dict(label="qwen3_30b_a3b_int8", model="Qwen/Qwen3-30B-A3B", quantize="int8",
@@ -1328,6 +1355,12 @@ def run_engine(pkg, ops, dev, card: str, path: dict, greedy_tokens: dict) -> dic
         t0 = time.perf_counter()
         line, by_path[path["sp_prefill"]] = sp_prefill(pkg, ops, dev, card, params, cfg)
         emit(dict(line, path=path["sp_prefill"], phase_wall_s=time.perf_counter() - t0))
+    for key, phase in (("tp2_tiers", tp2_tiers), ("tp2_transfer", tp2_transfer)):
+        if path.get(key):
+            t0 = time.perf_counter()
+            line, by_path[path[key]] = phase(pkg, ops, dev, card, params, cfg)
+            emit(dict(line, path=path[key], phase_wall_s=time.perf_counter() - t0))
+            free_cuda()
     return by_path
 
 
@@ -1381,10 +1414,11 @@ def pinned_copy_gb_s(n_bytes: int, to_host: bool) -> float:
     return n_bytes / cuda_time_ms(copy, iters=5, warmup=1) / 1e6
 
 
-def host_tier_engine(server, dev, params, cfg, rounds, knobs) -> dict:
+def host_tier_engine(server, dev, params, cfg, rounds, knobs, mesh=None) -> dict:
     """Serve ``rounds`` (round 2 evicts round 1 to the host, round 3 repeats
-    round 1) on one engine; hold round 3's restored pages against round 1's
-    and report its tokens, TTFTs, copies and cost-model state."""
+    round 1) on one engine (``mesh``: sharded over it, at its tp); hold
+    round 3's restored pages against round 1's, shard by shard, and report
+    its tokens, TTFTs, copies, cost-model state and ``BlockStored`` stream."""
     knobs = dict(knobs)
     total, host_pages = knobs.pop("total_pages", 384), knobs.pop("host_pages", 1024)
     ps, new_tokens = 16, 8
@@ -1395,9 +1429,11 @@ def host_tier_engine(server, dev, params, cfg, rounds, knobs) -> dict:
             model=cfg, max_model_len=2048, decode_batch_size=8, seed=SEED,
             block_manager=server.BlockManagerConfig(total_pages=total, page_size=ps,
                                                     host_pages=host_pages),
+            tp=mesh.shape["tp"] if mesh is not None else 1,
             **knobs,
         ),
-        params=params, on_events=lambda evs: events.append(list(evs)), device=dev,
+        params=params, on_events=lambda evs: events.append(list(evs)),
+        device=None if mesh is not None else dev, mesh=mesh,
     )
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0, "total_pages": total, "host_pages": host_pages,
@@ -1476,6 +1512,8 @@ def host_tier_engine(server, dev, params, cfg, rounds, knobs) -> dict:
         "prefill_dispatches": eng.prefill_stats["dispatches"],
         "decode_steps_with_warmup": eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps,
         "tokens": tokens,
+        "stored": [(h, e.medium) for evs in events for e in evs
+                   if type(e).__name__ == "BlockStored" for h in e.block_hashes],
     })
     del eng, round1, now
     free_cuda()
@@ -1575,7 +1613,7 @@ def host_tier(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
         "prefetch_wait_ms": {label: runs[label]["host_copy_stats"]["wait_s"] * 1e3
                              for label in ("bf16_always", "bf16_prefetch")},
         "launches": launches,
-        "runs": {label: {k: v for k, v in run.items() if k != "tokens"}
+        "runs": {label: {k: v for k, v in run.items() if k not in ("tokens", "stored")}
                  for label, run in runs.items()},
         "seconds": time.perf_counter() - t_phase,
     }
@@ -5170,6 +5208,207 @@ def sp_prefill(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
     return out, launches
 
 
+# -- page moves over sharded pools: the host tier and the wire at tp=2 --------
+#: the tp=2 tiers line's engines: (label, engine knobs, tp); the tiered ones
+#: hold 384 device pages over 1024 host pages, as ``host_tier``'s do
+TP2_TIER_RUNS = (
+    ("tp2_reference", dict(total_pages=1024, host_pages=0), SHARDED_TP),
+    ("tp2_always", dict(host_tier_policy="always"), SHARDED_TP),
+    ("tp1_always", dict(host_tier_policy="always"), 1),
+)
+
+
+def tp2_tiers(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """The host-DRAM tier over sharded pools, on the 8B path's resident
+    weights: ``host_tier``'s three rounds of four 1024-token prompts on a
+    tp=2 engine without the tier, with it ("always": round 2 demotes round
+    1's pages, round 3 restores them) and on a tp=1 engine with it. Gates:
+    pages restored, each restored page bit-equal on every shard to what was
+    demoted (and every page hit in HBM too), greedy tokens equal to the
+    untiered tp=2 engine's, the prompts' ``BlockStored`` events (hash and
+    medium, in order) equal to tp=1's, the pools written in place, exact
+    launch counts (tp times the kernels of a tp=1 engine's dispatches)."""
+    server = pkg["server"]
+    mesh = same_device_mesh(tp=SHARDED_TP, dev=dev)
+    rng = np.random.default_rng(SEED + 1)
+    rounds = [[rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(4)] for _ in range(2)]
+    rounds.append(rounds[0])
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    expected = dict.fromkeys(ops.COUNTED, 0)
+    runs = {}
+    for label, knobs, tp in TP2_TIER_RUNS:
+        run = runs[label] = host_tier_engine(server, dev, params, cfg, rounds, knobs,
+                                             mesh=mesh if tp > 1 else None)
+        exp = expected_launches(cfg, None, None, run["prefill_dispatches"],
+                                run["decode_steps_with_warmup"])
+        expected = {name: expected[name] + n * tp for name, n in exp.items()}
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    if launches != expected:
+        fail(f"tp2 tiers: kernel launches {launches} != expected {expected}")
+    tiered, ref, one = runs["tp2_always"], runs["tp2_reference"], runs["tp1_always"]
+    if tiered["pages_restored_in_round_3"] == 0 or tiered["block_stored_host_dram"] == 0:
+        fail(f"tp2 tiers: {tiered['pages_restored_in_round_3']} pages restored, "
+             f"{tiered['block_stored_host_dram']} BlockStored(host_dram)")
+    if tiered["restored_pages_unequal"] or tiered["hbm_hit_pages_unequal"]:
+        fail(f"tp2 tiers: {tiered['restored_pages_unequal']} restored and "
+             f"{tiered['hbm_hit_pages_unequal']} HBM-hit pages differ from round 1's on a shard")
+    if tiered["tokens"] != ref["tokens"]:
+        fail("tp2 tiers: greedy tokens through the host tier differ from the untiered tp=2 engine's")
+    kvblock = pkg["kvblock"]
+    db = kvblock.ChunkedTokenDatabase(kvblock.TokenProcessorConfig(block_size=16))
+    prompt_blocks = {h for r in rounds for p in r for h in db.prefix_hashes(p)}
+    streams = [[x for x in run["stored"] if x[0] in prompt_blocks] for run in (tiered, one)]
+    if streams[0] != streams[1]:
+        first = next((i for i, (a, b) in enumerate(zip(*streams)) if a != b), None)
+        fail(f"tp2 tiers: the prompts' BlockStored events differ from tp=1's at {first} "
+             f"({len(streams[0])} / {len(streams[1])} events)")
+    pairs = [(a, b) for ra, rb in zip(one["tokens"], tiered["tokens"]) for sa, sb in zip(ra, rb)
+             for a, b in zip(sa, sb)]
+    out = {
+        "phase": "sharded", "card": card, "tp": SHARDED_TP, "devices": [str(d) for d in mesh.devices],
+        "collective": mesh.collective.name, "n_layers": cfg.n_layers,
+        "prompts_per_round": 4, "prompt_tokens": 1024, "launches": launches,
+        "pages_restored_in_round_3": tiered["pages_restored_in_round_3"],
+        "restored_pages_unequal_per_shard": tiered["restored_pages_unequal"],
+        "tokens_equal_untiered_tp2": True,
+        "greedy_tokens_equal_share_vs_tp1": sum(a == b for a, b in pairs) / len(pairs),
+        "block_stored_prompt_events": len(streams[0]), "block_stored_equal_tp1": True,
+        "runs": {label: {k: v for k, v in run.items() if k not in ("tokens", "stored")}
+                 for label, run in runs.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return out, launches
+
+
+def tp2_transfer(pkg, ops, dev, card: str, params, cfg) -> tuple[dict, dict]:
+    """KV export and import over sharded pools, on the 8B path's resident
+    weights: four 1024-token prompts served cold and then warm (each alone)
+    on a tp=2 exporter with ``kv_integrity``; each prompt's 64 blocks
+    exported, sent through the wire's encoding and imported into a fresh
+    tp=2 engine and a fresh tp=1 engine (both checking the digests), which
+    then serve the prompts warm. Gates: every payload byte for byte the
+    exporter's pages gathered over its shards, at a tp=1 pod's block size,
+    its digest verified; nothing rejected; the imported pages bit-equal to
+    the exporter's (gathered); the tp=1 importer's own export byte for byte
+    the tp=2 exporter's; the tp=2 importer's greedy tokens equal to the
+    exporter's warm repeat, the tp=1 importer's equal or leaving it only at
+    a near tie (``near_tie_gate``); exact launch counts."""
+    from llm_d_kv_cache_manager_tpu_torch.kvcache import transfer
+    from llm_d_kv_cache_manager_tpu_torch.kvcache.integrity import page_digest
+    from llm_d_kv_cache_manager_tpu_torch.parallel import shard_params
+
+    server = pkg["server"]
+    mesh = same_device_mesh(tp=SHARDED_TP, dev=dev)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(4)]
+    ps, new_tokens = 16, 8
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+
+    def engine(tp):
+        return server.Engine(
+            server.EngineConfig(model=cfg, max_model_len=2048, decode_batch_size=8, seed=SEED,
+                                tp=tp, kv_integrity=True,
+                                block_manager=server.BlockManagerConfig(total_pages=1024, page_size=ps)),
+            params=params, device=None if tp > 1 else dev, mesh=mesh if tp > 1 else None)
+
+    def serve(eng, batch):
+        seqs = [eng.add_request(p, server.SamplingParams(max_new_tokens=new_tokens)) for p in batch]
+        eng.run_until_complete()
+        for s in seqs:
+            if s.error or len(s.generated_tokens) != new_tokens:
+                fail(f"tp2 transfer: a request finished with {len(s.generated_tokens)} tokens, "
+                     f"error={s.error}")
+        return seqs
+
+    def chain(eng, p):
+        hashes = eng.block_manager.token_db.prefix_hashes(p)
+        links = eng.block_manager.lookup_chain(hashes, None)
+        if [tier for _, _, tier, _ in links] != ["tpu_hbm"] * len(hashes):
+            fail("tp2 transfer: a prompt's chain is not resident in HBM")
+        return hashes, eng._gather_pages([idx for _, _, _, idx in links])
+
+    engines = {"src": engine(SHARDED_TP)}
+    src = engines["src"]
+    serve(src, prompts)
+    warm_src = [serve(src, [p])[0] for p in prompts]
+    shape = (cfg.n_layers, ps, cfg.n_kv_heads, cfg.hd)
+    payloads, wire_mib, digests_ok = [], 0.0, 0
+    t = time.perf_counter()
+    for p in prompts:
+        hashes, pages = chain(src, p)
+        blocks = src.export_kv_blocks(hashes)
+        if len(blocks) != len(hashes):
+            fail(f"tp2 transfer: exported {len(blocks)} of {len(hashes)} blocks")
+        for field, want in (("k_data", pages[0]), ("v_data", pages[1])):
+            if not torch.equal(wire_tensor(blocks, field, cfg.dtype, shape, dev), want):
+                fail(f"tp2 transfer: the payloads' {field} are not the exporter's gathered pages")
+        for b in blocks:
+            if len(b.k_data) + len(b.v_data) != src.kv_block_bytes:
+                fail(f"tp2 transfer: a payload is {len(b.k_data) + len(b.v_data)} bytes, "
+                     f"not a block's {src.kv_block_bytes}")
+            digests_ok += b.digest == page_digest(b.k_data, b.v_data, b.k_scale, b.v_scale)
+        wire = transfer.encode_response(blocks, True)
+        wire_mib += len(wire) / 2**20
+        payloads.append(transfer.decode_response(wire)[0])
+    export_s = time.perf_counter() - t
+    if digests_ok != 4 * 64:
+        fail(f"tp2 transfer: {digests_ok} of {4 * 64} digests verify")
+    out = {"phase": "sharded", "card": card, "tp": SHARDED_TP, "devices": [str(d) for d in mesh.devices],
+           "collective": mesh.collective.name, "n_layers": cfg.n_layers, "prompts": 4,
+           "prompt_tokens": 1024, "blocks": 4 * 64, "wire_mib": wire_mib,
+           "block_bytes": src.kv_block_bytes, "digests_verified": digests_ok,
+           "export_and_wire_s": export_s}
+    tokens = {"src": [list(s.generated_tokens) for s in warm_src]}
+    for label, tp in (("tp2_importer", SHARDED_TP), ("tp1_importer", 1)):
+        eng = engines[label] = engine(tp)
+        installed = sum(eng.import_kv_blocks(blocks, source_pod="src") for blocks in payloads)
+        if installed != 4 * 64 or eng.transfer_stats["import_rejected"]:
+            fail(f"tp2 transfer: {label} installed {installed} blocks, "
+                 f"rejected {eng.transfer_stats['import_rejected']}")
+        eng._flush_page_moves()
+        for p in prompts:
+            (a, b) = (chain(src, p)[1], chain(eng, p)[1])
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"tp2 transfer: {label}'s imported pages differ from the exporter's")
+        seqs = [serve(eng, [p])[0] for p in prompts]
+        if any(s.num_cached_prompt != w.num_cached_prompt for s, w in zip(seqs, warm_src)):
+            fail(f"tp2 transfer: {label} hit {[s.num_cached_prompt for s in seqs]} cached tokens, "
+                 f"the exporter's repeat {[s.num_cached_prompt for s in warm_src]}")
+        tokens[label] = [list(s.generated_tokens) for s in seqs]
+        out[label] = {"installed": installed, "cached_prompt_tokens": [s.num_cached_prompt for s in seqs],
+                      "integrity": eng.integrity.snapshot() if eng.integrity is not None else None}
+    if tokens["tp2_importer"] != tokens["src"]:
+        fail("tp2 transfer: the tp=2 importer's greedy tokens differ from the exporter's warm repeat")
+    back = engines["tp1_importer"]
+    for p, blocks in zip(prompts, payloads):
+        again = back.export_kv_blocks(back.block_manager.token_db.prefix_hashes(p))
+        if [(b.k_data, b.v_data) for b in again] != [(b.k_data, b.v_data) for b in blocks]:
+            fail("tp2 transfer: the tp=1 importer's export differs from the tp=2 exporter's bytes")
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = dict.fromkeys(ops.COUNTED, 0)
+    for label, eng in engines.items():
+        tp = eng.mesh.shape["tp"] if eng.mesh is not None else 1
+        exp = expected_launches(cfg, None, None, eng.prefill_stats["dispatches"],
+                                eng.decode_stats["steps"] + eng.decode_graphs.warmup_steps)
+        expected = {name: expected[name] + n * tp for name, n in exp.items()}
+    if launches != expected:
+        fail(f"tp2 transfer: kernel launches {launches} != expected {expected}")
+    # After the counts: the gate's cold prefills launch K2 too.
+    diffs = near_tie_gate(pkg, params, shard_params(params, mesh, cfg), cfg, mesh, prompts,
+                          tokens["tp1_importer"], tokens["src"], dev, None)
+    out.update(launches=launches, tokens_equal_tp2_importer=True,
+               tp1_importer_requests_equal=sum(a == b for a, b in zip(tokens["tp1_importer"], tokens["src"])),
+               near_tie_diffs=diffs, tp1_export_bytes_equal=True,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del engines, src, back, eng, payloads
+    free_cuda()
+    return out, launches
+
+
 # -- training through the routed MoE -------------------------------------------
 #: Qwen3-30B-A3B at full width, cut to 2 of its 48 layers (param, grad and
 #: AdamW's two moments in bf16 are 8 bytes a parameter: 15 GB at 2 layers,
@@ -5249,13 +5488,18 @@ def leaf_names(tree, prefix: str = "") -> list[str]:
 
 def grads_of(train, params, cfg, tokens) -> tuple[float, list]:
     """One forward and backward (no optimizer step): the loss and every
-    leaf's gradient, in ``param_leaves`` order."""
+    leaf's gradient, in ``param_leaves`` order; of sharded params, reduced
+    over their copies and gathered whole (``train.gather_grads``)."""
     leaves = train.param_leaves(params)
     for p in leaves:
         p.grad = None
     loss = train.loss_fn(params, cfg, tokens)
     loss.backward()
-    grads = [p.grad for p in leaves]
+    if hasattr(params, "replicas"):
+        train.reduce_grads(params)
+        grads = train.gather_grads(params)
+    else:
+        grads = [p.grad for p in leaves]
     for p in leaves:
         p.grad = None
     return float(loss.detach()), grads
@@ -5280,11 +5524,12 @@ def checkpoint_dir(need_bytes: int) -> str:
     fail(f"no directory has {need_bytes / 1e9:.1f} GB free for the checkpoints: {free}")
 
 
-def serve_tokens(server, params, cfg, dev, prompts, new_tokens: int) -> list:
+def serve_tokens(server, params, cfg, dev, prompts, new_tokens: int, mesh=None) -> list:
     eng = server.Engine(
         server.EngineConfig(model=cfg, block_manager=server.BlockManagerConfig(
-            total_pages=256, page_size=16), max_model_len=1024, decode_batch_size=8, seed=SEED),
-        params=params, device=dev)
+            total_pages=256, page_size=16), max_model_len=1024, decode_batch_size=8, seed=SEED,
+            tp=mesh.shape["tp"] if mesh is not None else 1),
+        params=params, device=None if mesh is not None else dev, mesh=mesh)
     seqs = [eng.add_request(p, server.SamplingParams(max_new_tokens=new_tokens)) for p in prompts]
     eng.run_until_complete()
     out = [list(s.generated_tokens) for s in seqs]
@@ -5433,6 +5678,239 @@ def train_phase(pkg, ops, dev, card: str) -> tuple[dict, dict]:
     return out, {"qwen3_30b_a3b_train": launches}
 
 
+#: the mesh training line: dp replicas of the batch, each over tp expert
+#: shards (64 experts a shard, 16 query heads over 2 KV heads), every shard
+#: on the card's one GPU
+TRAIN_MESH = {"dp": 2, "tp": 2}
+
+
+def copies_bit_equal(train, sharded) -> bool:
+    """Every dp replica's leaves equal the first replica's, and every copy
+    of a replicated leaf the first shard's, bit for bit."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel.sharding import leaf_specs
+
+    first = [train.param_leaves(tree) for tree in sharded.replicas[0][0]]
+    for grid in sharded.replicas[1:]:
+        for a, tree in zip(first, grid[0]):
+            if not all(torch.equal(x, y) for x, y in zip(a, train.param_leaves(tree))):
+                return False
+    specs = leaf_specs(sharded.replicas[0][0][0], sharded.specs)
+    return all(torch.equal(leaves[i], first[0][i]) for i, spec in enumerate(specs)
+               if "tp" not in spec for leaves in first[1:])
+
+
+def states_bit_equal(train, a, b) -> bool:
+    """Two train states' parameters (every shard's) and AdamW states."""
+    la, lb = train.param_leaves(a.params), train.param_leaves(b.params)
+    return a.step == b.step and len(la) == len(lb) and all(
+        torch.equal(x.detach(), y.detach())
+        and all(torch.equal(a.optimizer.state[x][k], b.optimizer.state[y][k])
+                for k in ("step", "exp_avg", "exp_avg_sq"))
+        for x, y in zip(la, lb))
+
+
+def saved_files_equal(path_a: str, path_b: str) -> bool:
+    """Two checkpoint files hold the same tree, tensor for tensor (read
+    memory-mapped on the host)."""
+    def flat(x):
+        if isinstance(x, dict):
+            return [(k, v) for key in x for k, v in flat_prefixed(key, x[key])]
+        if isinstance(x, (list, tuple)):
+            return [(k, v) for i, item in enumerate(x) for k, v in flat_prefixed(i, item)]
+        return [("", x)]
+
+    def flat_prefixed(key, x):
+        return [(f"{key}/{k}", v) for k, v in flat(x)]
+
+    a = flat(torch.load(path_a, map_location="cpu", weights_only=True, mmap=True))
+    b = flat(torch.load(path_b, map_location="cpu", weights_only=True, mmap=True))
+    return len(a) == len(b) and all(
+        ka == kb and (torch.equal(va, vb) if isinstance(va, torch.Tensor) and isinstance(vb, torch.Tensor)
+                      else va == vb)
+        for (ka, va), (kb, vb) in zip(a, b))
+
+
+def train_mesh_phase(pkg, ops, dev, card: str, tp1: dict) -> tuple[dict, dict]:
+    """``train_phase``'s model, weights and tokens trained over a (dp=2,
+    tp=2) mesh of shards on the card's one GPU: each replica one sequence,
+    each shard 64 of the 128 experts (K4, K4^T and K6 on every shard, about
+    half of a shard's rows past its last group). Gates: one step's loss and
+    every gathered gradient against tp=1's (``train_phase``'s initial
+    weights) with routing pinned to tp=1's, under the tp=1 line's bars (the
+    unpinned reading reported with none); ``TRAIN_STEPS`` AdamW steps with
+    exact launch counts (3 a layer a shard a step of each kernel, nothing
+    else counted), a falling loss, every replica and every copy of a
+    replicated leaf bit-equal; a train-state checkpoint saved from the mesh
+    equal, tensor for tensor, to the mesh-free save of the gathered state,
+    restored onto the mesh and onto no mesh bit-equal, the next step from
+    either restore against the in-memory state's under the tp=1 line's
+    bars; a params checkpoint restored straight onto a tp=2 mesh serving
+    the greedy tokens of the in-memory weights at tp=2."""
+    from llm_d_kv_cache_manager_tpu_torch import parallel
+    from llm_d_kv_cache_manager_tpu_torch.parallel import train
+
+    models, server, llama = pkg["models"], pkg["server"], pkg["llama"]
+    dp, tp = TRAIN_MESH["dp"], TRAIN_MESH["tp"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(models.QWEN3_30B_A3B, n_layers=TRAIN_LAYERS)
+    mesh = parallel.make_mesh(parallel.MeshConfig(dp=dp, tp=tp), devices=[dev] * (dp * tp))
+    out = {"phase": "train", "model": "qwen3_30b_a3b_train_dp2ep2", "card": card,
+           "dp": dp, "tp": tp, "devices": [str(d) for d in mesh.devices],
+           "collective": mesh.collective.name, "reduced": {"n_layers": f"{TRAIN_LAYERS} of 48"},
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "lr": TRAIN_LR,
+           "note": (f"every shard runs on {dev}: the mesh does the work of tp=1 in {dp * tp} "
+                    "shards plus the reductions and a second replica's update; readings, not a claim")}
+
+    # 1. One step against tp=1's, on train_phase's initial weights and tokens.
+    params = train.trainable(models.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev))
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).to(dev)
+    with moe_routing(llama) as routing:
+        loss_1, grads_1 = grads_of(train, params, cfg, tokens)
+    sharded = train.trainable(parallel.shard_train_params(params, mesh, cfg))
+    names = leaf_names(params)
+    del params
+    free_cuda()
+    rows = TRAIN_BATCH // dp * TRAIN_SEQ  # the rows a replica routes
+    pinned = [ids[d * rows : (d + 1) * rows] for d in range(dp) for ids, _ in routing]
+    with moe_routing(llama, pinned=pinned):
+        loss_m, grads_m = grads_of(train, sharded, cfg, tokens)
+    errs = rel_errors(grads_m, grads_1)
+    del grads_m
+    with moe_routing(llama) as routing_u:
+        loss_u, grads_u = grads_of(train, sharded, cfg, tokens)
+    errs_u = rel_errors(grads_u, grads_1)
+    by_layer = [(torch.cat([routing_u[d * cfg.n_layers + layer][0] for d in range(dp)]), None)
+                for layer in range(cfg.n_layers)]
+    flips, _ = routing_flips(routing, by_layer)
+    del grads_1, grads_u, routing, routing_u, by_layer
+    free_cuda()
+    out["grad_hold_vs_tp1"] = {
+        "loss_tp1": loss_1, "loss_mesh": loss_m, "max_rel_err": max(errs), "bar": GRAD_REL_BAR,
+        "loss_bar": LOSS_REL_BAR, "worst_leaf": names[int(np.argmax(errs))], "routing": "pinned",
+        "worst_leaves": sorted(zip(errs, names), reverse=True)[:6],
+        "median_rel_err": float(np.median(errs)),
+        "unpinned": {"loss_mesh": loss_u, "max_rel_err": max(errs_u),
+                     "worst_leaf": names[int(np.argmax(errs_u))],
+                     "tokens_flipped_by_layer": flips.sum(dim=1).tolist()}}
+    if not all(np.isfinite(errs)) or max(errs) > GRAD_REL_BAR:
+        fail(f"train dp2ep2: gathered gradients differ from tp=1's: {errs}")
+    if abs(loss_m - loss_1) > LOSS_REL_BAR * abs(loss_1):
+        fail(f"train dp2ep2: loss {loss_m} over the mesh vs {loss_1} at tp=1")
+
+    # 2. The main path: TRAIN_STEPS AdamW steps, counts zeroed just before
+    # and read just after.
+    state = train.TrainState(sharded, train.make_optimizer(sharded, TRAIN_LR), 0)
+    losses, step_s = [], []
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = train.train_step(state, cfg, tokens, TRAIN_LR)
+        losses.append(float(loss))  # syncs
+        step_s.append(time.perf_counter() - t)
+    launches = {name: w.launches for name, w in ops.COUNTED.items()}
+    expected = dict.fromkeys(ops.COUNTED, 0)
+    for name in TRAIN_KERNELS:
+        expected[name] = 3 * cfg.n_layers * dp * tp * TRAIN_STEPS
+    if launches != expected:
+        fail(f"train dp2ep2: kernel launches {launches} != expected {expected}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train dp2ep2: losses {losses} are not finite and falling")
+    if not copies_bit_equal(train, state.params):
+        fail("train dp2ep2: replicas or copies of a replicated leaf differ after the steps")
+    step_ms = float(np.median(step_s[1:])) * 1e3
+    out.update(losses=losses, step_s=step_s, step_ms=step_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), launches=launches,
+               copies_bit_equal=True)
+    out["profile"] = profile_window(lambda: train.train_step(state, cfg, tokens, TRAIN_LR), 1, 1,
+                                    ops.COUNTED)
+    state = state._replace(step=state.step + 2)  # the profile's two steps
+    if not copies_bit_equal(train, state.params):
+        fail("train dp2ep2: replicas or copies differ after the profiled steps")
+    out["peak_mem_gib_training"] = torch.cuda.max_memory_allocated() / 2**30
+    out["tp1"] = {"step_ms": tp1["step_ms"], "tokens_per_s": tp1["tokens_per_s"],
+                  "device_idle_share": tp1["profile"]["device_idle_share"],
+                  "peak_mem_gib_training": tp1["peak_mem_gib_training"]}
+    for wrapper in ops.COUNTED.values():
+        wrapper.launches = 0  # what follows is checked, not counted
+
+    # 3. Checkpoints.
+    n_params = tp1["param_count"]
+    state_bytes = n_params * 2 * 3  # params and two moments, bf16
+    ckpt = checkpoint_dir(2 * state_bytes + n_params * 2)
+    paths = {k: os.path.join(ckpt, f"{k}.pt") for k in ("mesh", "free", "params")}
+    try:
+        t = time.perf_counter()
+        parallel.save_train_state(paths["mesh"], state)
+        write_s = time.perf_counter() - t
+        gathered = parallel.gather_train_state(state)
+        parallel.save_train_state(paths["free"], gathered)
+        del gathered
+        free_cuda()
+        if not saved_files_equal(paths["mesh"], paths["free"]):
+            fail("train dp2ep2: the mesh save differs from the mesh-free save of the gathered state")
+        os.remove(paths["free"])
+        t = time.perf_counter()
+        free = parallel.load_train_state(paths["mesh"], cfg, TRAIN_LR, device=dev)
+        torch.cuda.synchronize()
+        read_free_s = time.perf_counter() - t
+        if not states_bit_equal(train, free, parallel.gather_train_state(state)):
+            fail("train dp2ep2: the mesh-free restore is not bit-equal to the gathered state")
+        free, loss_f = train.train_step(free, cfg, tokens, TRAIN_LR)
+        params_f = train.detached(free.params)
+        del free
+        free_cuda()
+        t = time.perf_counter()
+        on_mesh = parallel.load_train_state(paths["mesh"], cfg, TRAIN_LR, mesh=mesh)
+        torch.cuda.synchronize()
+        read_mesh_s = time.perf_counter() - t
+        if not states_bit_equal(train, on_mesh, state):
+            fail("train dp2ep2: the restore onto the mesh is not bit-equal to the saved state")
+        on_mesh, loss_r = train.train_step(on_mesh, cfg, tokens, TRAIN_LR)
+        params_r = parallel.gather_params(on_mesh.params)
+        del on_mesh
+        free_cuda()
+        state, loss_a = train.train_step(state, cfg, tokens, TRAIN_LR)
+        state.optimizer.zero_grad(set_to_none=True)
+        params_a = parallel.gather_params(state.params)
+        resume = {}
+        for label, params_x, loss_x in (("mesh", params_r, loss_r), ("no_mesh", params_f, loss_f)):
+            e = rel_errors(train.param_leaves(params_x), train.param_leaves(params_a))
+            resume[label] = {"loss": float(loss_x), "params_max_rel_err": max(e),
+                             "bit_equal": leaves_equal(params_x, params_a)}
+            if max(e) > GRAD_REL_BAR or abs(float(loss_x) - float(loss_a)) > LOSS_REL_BAR * abs(float(loss_a)):
+                fail(f"train dp2ep2: a step from the restore {label} differs: {resume[label]}, "
+                     f"in-memory loss {float(loss_a)}")
+        del params_r, params_f
+        parallel.save_params(paths["params"], state.params)
+        serve_mesh = same_device_mesh(tp=tp, dev=dev)
+        served = parallel.load_params(paths["params"], cfg, device=dev, mesh=serve_mesh)
+        prompts = [rng.integers(0, cfg.vocab_size, 64).tolist() for _ in range(2)]
+        tokens_restored = serve_tokens(server, served, cfg, dev, prompts, 8, mesh=serve_mesh)
+        del served
+        tokens_memory = serve_tokens(server, params_a, cfg, dev, prompts, 8, mesh=serve_mesh)
+        if tokens_restored != tokens_memory:
+            fail(f"train dp2ep2: restored weights serve {tokens_restored} at tp=2, in-memory "
+                 f"{tokens_memory}")
+        out["checkpoint"] = {"train_state_gb": os.path.getsize(paths["mesh"]) / 1e9,
+                             "write_s": write_s, "read_no_mesh_s": read_free_s,
+                             "read_mesh_s": read_mesh_s, "mesh_save_equals_mesh_free_save": True,
+                             "restores_bit_equal": True, "in_memory_next_loss": float(loss_a),
+                             "next_step_from_restore": resume}
+        out["served"] = {"tp": tp, "requests": len(prompts), "new_tokens_each": 8,
+                         "tokens_equal": True, "tokens": tokens_restored}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del state, params_a
+    free_cuda()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out, {"qwen3_30b_a3b_train_dp2ep2": launches}
+
+
 def attention_checks(ops, models, llama, dev, gen) -> list[dict]:
     """K1, K1q and K2 in every form, at Llama-3.1-8B's attention (32 query
     heads over 8 KV heads) and, under ``group8``, at Qwen3-30B-A3B's (over 4
@@ -5549,6 +6027,10 @@ def main() -> None:
                                                                "plain_ms", "library_ms")}
                            for k in kernels if k["name"] in TRAIN_KERNELS}
     emit(result)
+    free_cuda()
+    mesh_result, launches = train_mesh_phase(pkg, ops, dev, card, result)
+    by_path.update(launches)
+    emit(mesh_result)
     free_cuda()
     for k in kernels:
         k["launches_by_path"] = {label: launches[k["name"]] for label, launches in by_path.items()}

@@ -95,7 +95,10 @@ def train_state_from_jax(state: Any, cfg: LlamaConfig, device, lr: float = 1e-4)
     ``params_from_jax``, trainable, and optax's ``ScaleByAdamState`` —
     found in the optimizer state by its ``count``, ``mu`` and ``nu`` — as
     AdamW's ``step``, ``exp_avg`` and ``exp_avg_sq`` of each parameter, so
-    a run started in the JAX package resumes in the port."""
+    a run started in the JAX package resumes in the port. A state taken
+    from a JAX (dp, tp) mesh converts the same way (its numpy leaves are
+    whole arrays); ``parallel.shard_train_state`` then places it on the
+    port's mesh."""
     from ..parallel.train import TrainState, make_optimizer, param_leaves, trainable
 
     adam = [s for s in state.opt_state if all(hasattr(s, a) for a in ("count", "mu", "nu"))]

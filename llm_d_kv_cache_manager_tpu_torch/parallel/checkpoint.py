@@ -10,7 +10,20 @@ strings, lists and dicts only. An int8 ``QuantizedTensor`` is saved as a
 plain ``{"q", "scale"}`` dict and rebuilt from ``cfg`` and ``quantize``:
 pass the ``quantize`` the params were made with, as in JAX. The train state
 holds the parameters, AdamW's state dict (its moments in each parameter's
-dtype) and the step. Restores onto a mesh are not ported (ROADMAP A15c).
+dtype) and the step.
+
+Meshes. A save from sharded params or a sharded train state gathers them
+first (``sharding.gather_params``, ``train.gather_train_state``) into the
+same one-file format: the same keys, the same ``param_leaves`` order and
+the same optimizer state-dict layout, so a file does not record how it was
+sharded (as orbax's does not). ``load_params(..., mesh=)`` and
+``load_train_state(..., mesh=)`` read the file memory-mapped on the host
+and put each shard's slice straight on its device
+(``sharding.shard_train_params``): int8 codes follow their weight's spec
+and their scales too, with the size-1 contraction axis replicated; AdamW's
+moments follow their parameters and the step count is replicated. No whole
+tensor is materialised on one device (JAX's "each host reads only its
+shard").
 """
 
 from __future__ import annotations
@@ -22,7 +35,9 @@ import torch
 
 from ..models.llama import LlamaConfig, Params
 from ..models.quant import QuantizedTensor
-from .train import TrainState, make_optimizer, trainable
+from .mesh import ShardedParams
+from .sharding import gather_params, shard_train_params
+from .train import TrainState, gather_train_state, make_optimizer, sharded_train_state, trainable
 
 Device = Union[torch.device, str]
 
@@ -47,7 +62,11 @@ def _write(path: str, obj: Any) -> None:
     os.replace(tmp, path)
 
 
-def _read(path: str, device: Device) -> Any:
+def _read(path: str, device: Device, mesh=None) -> Any:
+    """The file's tree on ``device``, or, for a restore onto ``mesh``,
+    memory-mapped on the host (sliced by the caller, a shard at a time)."""
+    if mesh is not None:
+        return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True, mmap=True)
     return torch.load(os.path.abspath(path), map_location=device, weights_only=True)
 
 
@@ -78,7 +97,10 @@ def _rebuild(tree: Params, cfg: Optional[LlamaConfig], quantize: Optional[str]) 
 
 
 def save_params(path: str, params: Params) -> None:
-    """Save a parameter tree (full precision or int8) to ``path``."""
+    """Save a parameter tree (full precision or int8) to ``path``; sharded
+    params are gathered first."""
+    if isinstance(params, ShardedParams):
+        params = gather_params(params)
     _write(path, _to_saved(params))
 
 
@@ -87,15 +109,29 @@ def load_params(
     cfg: Optional[LlamaConfig] = None,
     quantize: Optional[str] = None,
     device: Device = "cuda",
+    *,
+    mesh=None,
 ) -> Params:
     """Restore a parameter tree onto ``device``. The tensors require no
     grad, so the result can be served directly. With ``cfg`` the tree is
     checked against it and int8 weights come back as ``QuantizedTensor``s
-    (``quantize="int8"``, as they were saved)."""
-    return _rebuild(_read(path, device), cfg, quantize)
+    (``quantize="int8"``, as they were saved). With ``mesh`` (and ``cfg``)
+    each shard's slices go straight onto its device
+    (``sharding.shard_train_params``' trees, every replica's; ``device`` is
+    then unused)."""
+    if mesh is None:
+        return _rebuild(_read(path, device), cfg, quantize)
+    if cfg is None:
+        raise ValueError("a restore onto a mesh needs cfg (the sharding specs come from it)")
+    return shard_train_params(_rebuild(_read(path, device, mesh), cfg, quantize), mesh, cfg)
 
 
 def save_train_state(path: str, state: TrainState) -> None:
+    """Save a train state; a sharded one is gathered first
+    (``train.gather_train_state``), so the file equals a mesh-free save of
+    the gathered state."""
+    if isinstance(state.params, ShardedParams):
+        state = gather_train_state(state)
     _write(path, {
         "params": _to_saved(state.params),
         "optimizer": state.optimizer.state_dict(),
@@ -112,9 +148,16 @@ def load_train_state(
 ) -> TrainState:
     """Restore a train state onto ``device``: trainable parameters, an
     AdamW at ``lr`` holding the saved moments and step counts, and the
-    step. ``mesh`` is not ported (ROADMAP A15c)."""
+    step. With ``mesh`` every shard's slice of the parameters and of their
+    moments goes straight onto its device (``device`` is then unused)."""
     if mesh is not None:
-        raise NotImplementedError("restoring onto a mesh is not ported (ROADMAP A15c)")
+        saved = _read(path, device, mesh)
+        params = _rebuild(saved["params"], cfg, None)
+        opt = saved["optimizer"]
+        n = len(opt["param_groups"][0]["params"])
+        moments = [opt["state"].get(i) for i in range(n)]
+        group = {k: v for k, v in opt["param_groups"][0].items() if k != "params"}
+        return sharded_train_state(params, moments, dict(group, lr=lr), saved["step"], mesh, cfg)
     saved = _read(path, device)
     params = trainable(_rebuild(saved["params"], cfg, None))
     optimizer = make_optimizer(params, lr)

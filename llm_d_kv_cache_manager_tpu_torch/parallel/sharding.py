@@ -25,7 +25,11 @@ contraction axis replicated. A split must be even, as in JAX.
 ``shard_params`` gives each shard its tensors on its own device. Where the
 shard's device is the one the tree already lives on, a shard is a view of
 the tree, not a copy: a mesh whose shards share one device holds the
-weights once.
+weights once. ``shard_train_params`` gives every (dp, sp, tp) shard its
+own contiguous leaves instead (a view cannot hold its own ``.grad``, and
+shards on distinct devices are leaves anyway), so one training path serves
+one device and many; ``gather_params`` is its inverse. Token batches split
+evenly over the dp replicas (``batch_sharding``, ``shard_batch``).
 """
 
 from __future__ import annotations
@@ -87,6 +91,23 @@ def param_specs(cfg: LlamaConfig, tp: int = 1) -> dict[str, Any]:
     return specs
 
 
+def batch_sharding() -> Spec:
+    """Token batches ``[b, s]``: the batch split over the dp replicas,
+    every tp shard of a replica holding its whole slice."""
+    return ("dp",)
+
+
+def shard_batch(tokens: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """Replica ``d``'s even slice of the batch, on its first device. An
+    uneven split raises, as JAX's ``device_put`` does."""
+    dp = mesh.shape["dp"]
+    b = tokens.shape[0]
+    if b % dp:
+        raise ValueError(f"batch of {b} does not split evenly over dp={dp}")
+    n = b // dp
+    return [tokens[d * n : (d + 1) * n].to(mesh.replicas[d][0][0]) for d in range(dp)]
+
+
 def kv_pages_sharding() -> Spec:
     """KV pools ``[n_layers, pages, page_size, n_kv_heads, hd]``: head-parallel."""
     return (None, None, None, "tp")
@@ -128,6 +149,35 @@ def _to(x: Any, device: torch.device) -> Any:
     return x.to(device)
 
 
+def _own(x: Any, device: torch.device) -> Any:
+    """A fresh contiguous copy of ``x`` on ``device`` that requires no
+    grad (read through once: a slice of a memory-mapped tensor is paged
+    in, nothing more)."""
+    if isinstance(x, QuantizedTensor):
+        return QuantizedTensor(q=_own(x.q, device), scale=_own(x.scale, device))
+    return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x.detach())
+
+
+def _map_tree(node: Any, spec: Any, fn, name: str = "params") -> Any:
+    """``fn(leaf, spec, name)`` over a tree and the spec tree beside it
+    (dicts by key, lists by position)."""
+    if isinstance(node, dict):
+        missing = set(node) - set(spec)
+        if missing:
+            raise ValueError(f"no sharding spec for {sorted(missing)}")
+        return {k: _map_tree(v, spec[k], fn, k) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_tree(v, s, fn, name) for v, s in zip(node, spec)]
+    return fn(node, spec, name)
+
+
+def leaf_specs(params: Any, specs: Any) -> list[Spec]:
+    """The spec of every leaf of ``params``, in ``param_leaves`` order."""
+    out: list = []
+    _map_tree(params, specs, lambda x, s, n: out.append(s))
+    return out
+
+
 def shard_params(params: Params, mesh: Mesh, cfg: LlamaConfig) -> ShardedParams:
     """Place a parameter tree onto the mesh: each shard's slices on its
     device (views where that is the tree's own device)."""
@@ -138,26 +188,90 @@ def shard_params(params: Params, mesh: Mesh, cfg: LlamaConfig) -> ShardedParams:
     tp = mesh.shape["tp"]
     specs = param_specs(cfg, tp)
 
-    def tree(node, spec, t, device, name):
-        if isinstance(node, dict):
-            missing = set(node) - set(spec)
-            if missing:
-                raise ValueError(f"no sharding spec for {sorted(missing)}")
-            return {k: tree(v, spec[k], t, device, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [tree(v, s, t, device, name) for v, s in zip(node, spec)]
-        return _to(shard_leaf(node, spec, t, tp, name), device)
+    def tree(node, spec, t, device):
+        return _map_tree(node, spec, lambda x, s, n: _to(shard_leaf(x, s, t, tp, n), device))
 
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"params have {len(params['layers'])} layers, cfg {cfg.n_layers}")
-    first = [tree(params, specs, t, mesh.grid[0][t], "params") for t in range(tp)]
+    first = [tree(params, specs, t, mesh.grid[0][t]) for t in range(tp)]
     shards = [first]
     for r in range(1, mesh.shape["sp"]):
-        shards.append([
-            tree(first[t], _replicated(specs), 0, mesh.grid[r][t], "params")
-            for t in range(tp)
-        ])
-    return ShardedParams(mesh, shards)
+        shards.append([tree(first[t], _replicated(specs), 0, mesh.grid[r][t]) for t in range(tp)])
+    return ShardedParams(mesh, shards, specs)
+
+
+def shard_train_params(params: Params, mesh: Mesh, cfg: LlamaConfig) -> ShardedParams:
+    """Place a parameter tree onto every replica of the mesh, each (dp, sp,
+    tp) shard with its own contiguous leaves on its device (replicated
+    leaves copied to every shard): the form training and the checkpoint
+    restores use. Serves as well as ``shard_params``' trees."""
+    if isinstance(params, ShardedParams):
+        raise ValueError("params are already sharded: gather_params them first")
+    if len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"params have {len(params['layers'])} layers, cfg {cfg.n_layers}")
+    tp = mesh.shape["tp"]
+    specs = param_specs(cfg, tp)
+    replicas = [
+        [
+            [_map_tree(params, specs, lambda x, s, n, t=t, dev=dev: _own(shard_leaf(x, s, t, tp, n), dev))
+             for t, dev in enumerate(row)]
+            for row in grid
+        ]
+        for grid in mesh.replicas
+    ]
+    return ShardedParams(mesh, replicas[0], specs, replicas)
+
+
+def gather_leaf(parts: list, spec: Spec, device: torch.device) -> Any:
+    """One leaf whole on ``device``, a fresh tensor, from its tp shards'
+    slices (a copy of the first shard's for a replicated leaf)."""
+    if isinstance(parts[0], QuantizedTensor):
+        entries = list(spec) + [None] * (parts[0].ndim - len(spec))
+        scale_entries = list(entries)
+        scale_entries[-2] = None
+        return QuantizedTensor(q=gather_leaf([p.q for p in parts], tuple(entries), device),
+                               scale=gather_leaf([p.scale for p in parts], tuple(scale_entries), device))
+    if "tp" not in spec:
+        return parts[0].to(device, copy=True)
+    return torch.cat([p.to(device) for p in parts], dim=spec.index("tp"))
+
+
+def gather_params(sharded: ShardedParams, device: Optional[torch.device] = None) -> Params:
+    """The inverse of ``shard_params`` / ``shard_train_params``: the whole
+    tree on ``device`` (default: the first shard's), from the first
+    replica's first row, in fresh tensors that require no grad."""
+    device = device or sharded.mesh.root
+    row = sharded.shards[0]
+    leaves = [
+        gather_leaf([_detached(x) for x in parts], spec, device)
+        for parts, spec in zip(zip(*(_leaves(tree) for tree in row)),
+                               leaf_specs(row[0], sharded.specs))
+    ]
+    return _unflatten(row[0], iter(leaves))
+
+
+def _detached(x: Any) -> Any:
+    if isinstance(x, QuantizedTensor):
+        return QuantizedTensor(q=x.q.detach(), scale=x.scale.detach())
+    return x.detach()
+
+
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(like: Any, leaves) -> Any:
+    """A tree shaped like ``like`` whose leaves are taken in order from the
+    iterator ``leaves``."""
+    if isinstance(like, dict):
+        return {k: _unflatten(v, leaves) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_unflatten(v, leaves) for v in like]
+    return next(leaves)
 
 
 def _replicated(spec: Any) -> Any:

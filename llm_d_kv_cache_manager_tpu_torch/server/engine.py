@@ -58,8 +58,12 @@ pod publishes one stream. ``self.device`` is the first shard's device,
 where the logits are sampled. Decode bursts are captured as CUDA graphs
 when every shard shares one device; shards on distinct devices run each
 burst eagerly (``decode_stats["dispatch"]`` says which). The host-DRAM
-tier, the remote tier and KV transfer move whole pages and are refused
-over a mesh. Every decode burst goes
+tier, the remote tier and KV transfer move whole-head pages over a mesh
+too: a gather reads every tp shard's pool and concatenates the shards
+along the KV-head axis, and a restore or an import splits each page's
+heads back over the shards in place, so host slots, wire payloads, their
+sizes and digests are those of an unsharded pod. An engine serves one
+replica: a mesh with ``dp > 1`` is refused. Every decode burst goes
 through ``DecodeGraphs`` (``server/decode_graphs.py``): on CUDA one graph
 replay a burst, captured per (k, block-table width); on the CPU the same
 code without capture.
@@ -633,13 +637,11 @@ class Engine:
                 f"sp={config.sp} must divide prefill_bucket={config.prefill_bucket} "
                 f"(chunk lengths are bucket multiples and must shard evenly)"
             )
-        # These move whole pages between the pools and host or wire bytes;
-        # their movers are not written for per-shard pools.
-        if config.block_manager.host_pages > 0 or config.remote_tier:
-            raise ValueError("the host-DRAM and remote tiers are not ported to sharded pools "
-                             "(tp or sp > 1)")
         if mesh is None:
             return make_mesh(MeshConfig(dp=1, sp=config.sp, tp=config.tp))
+        if mesh.shape["dp"] != 1:
+            # Serving runs one replica, as the JAX engine builds dp=1 meshes.
+            raise ValueError(f"an engine serves one replica: the mesh has dp={mesh.shape['dp']}")
         if mesh.shape["sp"] != config.sp or mesh.shape["tp"] != config.tp:
             raise ValueError(
                 f"provided mesh {mesh.shape} does not match config sp={config.sp}, tp={config.tp}"
@@ -647,10 +649,6 @@ class Engine:
         if device is not None and torch.device(device) != mesh.root:
             raise ValueError(f"device {device} is not the mesh's first device {mesh.root}")
         return mesh
-
-    def _no_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"{what} is not ported to sharded pools (tp or sp > 1)")
 
     # -- host-DRAM tier -----------------------------------------------------
     def _init_host_tier(self) -> None:
@@ -790,14 +788,13 @@ class Engine:
         their enqueue would read as a far faster link)."""
         n = min(16, self.config.block_manager.total_pages)
         cuda = self.device.type == "cuda"
-        idx = torch.zeros(n, dtype=torch.long, device=self.device)
-        pools = (self.k_pages, self.v_pages)
-        dest = [torch.empty((n,) + p.shape[:1] + p.shape[2:], dtype=p.dtype, pin_memory=cuda)
-                for p in pools]
+        pages = [0] * n
+        dest = [torch.empty(r.shape, dtype=r.dtype, pin_memory=cuda)
+                for r in self._gather_pages(pages)[:2]]
 
         def copy():
-            for d, pool in zip(dest, pools):
-                d.copy_(pool.index_select(1, idx).transpose(0, 1).contiguous(), non_blocking=True)
+            for d, row in zip(dest, self._gather_pages(pages)[:2]):
+                d.copy_(row, non_blocking=True)
             if cuda:
                 torch.cuda.synchronize(self.device)
 
@@ -833,9 +830,17 @@ class Engine:
 
     def _device_pools(self) -> list[torch.Tensor]:
         """The page pools ``[L, total_pages, ps, n_kv, hd]``, and when they
-        are int8 their scale pools ``[L, total_pages, n_kv]``."""
-        return [t for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)
-                if t is not None]
+        are int8 their scale pools ``[L, total_pages, n_kv]``; under a mesh
+        every tp shard's pool, pool by pool (``_pool_shards``)."""
+        return [t for shards in self._pool_shards() for t in shards]
+
+    def _pool_shards(self) -> list[list[torch.Tensor]]:
+        """Each of ``_device_pools``' pools as its list of tp shards: one
+        whole pool without a mesh; under a mesh each shard holds ``n_kv /
+        tp`` heads on the first sp row's devices."""
+        pools = [t for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)
+                 if t is not None]
+        return pools if self.mesh is not None else [[t] for t in pools]
 
     def _to_pool_form(self, rows: list[torch.Tensor]) -> list[torch.Tensor]:
         """Pages ``[n, ...]`` as the slots hold them, as the device pools
@@ -1336,8 +1341,8 @@ class Engine:
         if restores:
             # In place: the decode graphs hold the pools by address.
             idx = self._index(list(restores))
-            for pool, rows in zip(self._device_pools(), select(restores.values())):
-                pool.index_copy_(1, idx, rows.transpose(0, 1))
+            for shards, rows in zip(self._pool_shards(), select(restores.values())):
+                self._scatter_rows(shards, idx, rows.transpose(0, 1))
             self._spans.append(("restore", len(restores), restore_span.end(compute)))
         if offloads:
             slots = sorted(offloads)
@@ -1373,10 +1378,35 @@ class Engine:
             self.step_stats["demote_s"] += demote_s
 
     def _gather_pages(self, pages: list[int]) -> list[torch.Tensor]:
-        """Device pages ``pages`` of every pool, slot-major ``[n, L, ...]``."""
+        """Device pages ``pages`` of every pool, slot-major ``[n, L, ...]``
+        on the engine's device. Under a mesh each tp shard's pages are
+        concatenated along the KV-head axis: a row is the whole-head page a
+        tp=1 pool (or the JAX engine's global array) holds."""
         idx = self._index(pages)
-        return [pool.index_select(1, idx).transpose(0, 1).contiguous()
-                for pool in self._device_pools()]
+        out = []
+        for shards in self._pool_shards():
+            parts = [pool.index_select(1, idx.to(pool.device)).transpose(0, 1).contiguous()
+                     for pool in shards]
+            if len(parts) == 1:
+                out.append(parts[0])
+            else:  # heads: axis 3 of a page [n, L, ps, n_kv, hd], 2 of a scale [n, L, n_kv]
+                axis = 3 if parts[0].dim() == 5 else 2
+                out.append(torch.cat([p.to(self.device) for p in parts], dim=axis))
+        return out
+
+    @staticmethod
+    def _scatter_rows(shards: list[torch.Tensor], idx: torch.Tensor, rows: torch.Tensor) -> None:
+        """Write whole-head pages ``rows [L, n, ...]`` into pages ``idx`` of a
+        pool's tp shards, in place: each shard takes its slice of the
+        KV-head axis (``kv_pages_sharding``, ``kv_scales_sharding``)."""
+        if len(shards) == 1:
+            shards[0].index_copy_(1, idx, rows)
+            return
+        axis = 3 if rows.dim() == 5 else 2
+        for t, pool in enumerate(shards):
+            width = pool.shape[axis]
+            part = rows.narrow(axis, t * width, width)
+            pool.index_copy_(1, idx.to(pool.device), part.to(pool.device))
 
     # -- cross-pod KV transfer (kvcache/transfer) ---------------------------
     @property
@@ -1439,7 +1469,6 @@ class Engine:
         from ..kvcache.integrity import CHECK_CORRUPT, page_digest
         from ..kvcache.transfer.protocol import BlockPayload
 
-        self._no_mesh("KV export")
         self._flush_page_moves()
         chain = self.block_manager.lookup_chain(hashes, max_blocks)
         # The remote store serves the rest of the run from its wire-ready
@@ -1521,7 +1550,6 @@ class Engine:
         from, named in the log of a rejection and, with ``kv_integrity``, in
         the ``BadBlock`` published when a payload fails its carried digest
         (the import then stops there)."""
-        self._no_mesh("KV import")
         from ..kvcache.kvblock.token_processor import hash_block
 
         if allow_evict is None:

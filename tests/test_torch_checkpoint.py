@@ -3,8 +3,8 @@ the JAX package's ``tests/test_checkpoint.py`` on the CPU: params and train
 state come back bit-equal, a resumed run equals the uninterrupted one bit
 for bit (the same float32 operations on the same device), int8 params keep
 their ``QuantizedTensor`` nodes, and restored int8 params serve the same
-greedy tokens. The sharded-restore cases have no counterpart (no mesh:
-ROADMAP A15); a mesh is refused.
+greedy tokens. The sharded-restore cases are in
+``test_torch_mesh_checkpoint.py``.
 """
 
 import numpy as np
@@ -95,11 +95,27 @@ class TestCheckpoint:
         assert state.step == straight.step == 4 and float(loss) == float(loss_straight)
         _trees_equal(straight.params, state.params)
 
-    def test_mesh_is_refused(self, tmp_path):
+    def test_restore_onto_a_mesh_is_accepted(self, tmp_path):
+        """A mesh-free save restores onto a (dp=2, tp=2) mesh of CPU shards
+        and gathers back bit-equal (``test_torch_mesh_checkpoint.py`` holds
+        the shards against JAX's)."""
+        from llm_d_kv_cache_manager_tpu_torch.parallel import (
+            MeshConfig,
+            gather_train_state,
+            make_mesh,
+        )
+
         state = make_train_state(TINY_LLAMA, 4, device="cpu")
+        state, _ = train_step(state, TINY_LLAMA, _tokens(4))
         save_train_state(str(tmp_path / "train"), state)
-        with pytest.raises(NotImplementedError, match="A15"):
-            load_train_state(str(tmp_path / "train"), TINY_LLAMA, device="cpu", mesh=object())
+        mesh = make_mesh(MeshConfig(dp=2, tp=2), devices=["cpu"] * 4)
+        resumed = load_train_state(str(tmp_path / "train"), TINY_LLAMA, device="cpu", mesh=mesh)
+        assert resumed.step == 1 and resumed.params.mesh is mesh
+        back = gather_train_state(resumed)
+        _trees_equal(state.params, back.params)
+        for p, q in zip(param_leaves(state.params), param_leaves(back.params)):
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(state.optimizer.state[p][key], back.optimizer.state[q][key])
 
 
 class TestQuantizedCheckpoint:

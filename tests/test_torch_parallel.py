@@ -288,7 +288,7 @@ class TestMesh:
     def test_collective_chosen_from_devices(self):
         mesh = cpu_mesh(tp=2, sp=2)
         assert mesh.collective.name == "same_device"
-        assert mesh.describe() == {"tp": 2, "sp": 2, "devices": ["cpu"] * 4,
+        assert mesh.describe() == {"dp": 1, "tp": 2, "sp": 2, "devices": ["cpu"] * 4,
                                    "collective": "same_device"}
         assert [len(row) for row in mesh.grid] == [2, 2]
 
@@ -520,14 +520,27 @@ class TestTensorParallelServing:
         with pytest.raises(ValueError, match="mesh needs 2 devices"):
             TEngine(cfg)
 
-    def test_tiers_and_transfer_refused_over_a_mesh(self):
+    def test_tiers_and_transfer_served_over_a_mesh(self):
+        """A tp=2 engine takes the host tier and the remote tier, and exports
+        and imports KV (``test_torch_sharded_tiers.py`` holds them against
+        JAX's tp=2 engine); an engine refuses a mesh with dp > 1."""
         _, tcfg, _, tparams = _model("tiny-llama")
         bm = TBM(total_pages=16, page_size=PS, host_pages=8)
-        with pytest.raises(ValueError, match="not ported to sharded pools"):
-            TEngine(TEC(model=tcfg, block_manager=bm, tp=2), params=tparams, mesh=cpu_mesh(tp=2))
-        eng = _Side(True, "tiny-llama", tp=2).eng
-        with pytest.raises(NotImplementedError, match="sharded pools"):
-            eng.export_kv_blocks([1])
+        for knobs in (dict(block_manager=bm), dict(block_manager=TBM(total_pages=16, page_size=PS),
+                                                   remote_tier=True)):
+            eng = TEngine(TEC(model=tcfg, tp=2, **knobs), params=tparams, mesh=cpu_mesh(tp=2))
+            assert eng.mesh.shape["tp"] == 2
+        side = _Side(True, "tiny-llama", tp=2)
+        p = _prompt(5, 12)
+        side.serve([p])
+        hashes = side.eng.block_manager.token_db.prefix_hashes(p)
+        blocks = side.eng.export_kv_blocks(hashes)
+        assert len(blocks) == len(hashes) == 3
+        other = _Side(True, "tiny-llama", tp=2)
+        assert other.eng.import_kv_blocks(blocks) == len(blocks)
+        with pytest.raises(ValueError, match="dp=2"):
+            TEngine(TEC(model=tcfg, block_manager=bm, tp=2), params=tparams,
+                    mesh=make_mesh(MeshConfig(dp=2, tp=2), devices=["cpu"] * 4))
 
     def test_spec_decode_over_tp(self):
         prompt = [1, 2, 3, 4, 5, 6] * 4
@@ -577,7 +590,7 @@ def test_pod_stats_name_the_mesh():
         stats = asyncio.run(scenario())
     finally:
         pod.shutdown()
-    assert stats["mesh"] == {"tp": 2, "sp": 1, "devices": ["cpu", "cpu"],
+    assert stats["mesh"] == {"dp": 1, "tp": 2, "sp": 1, "devices": ["cpu", "cpu"],
                              "collective": "same_device", "decode_dispatch": "eager"}
 
 

@@ -183,17 +183,29 @@ def test_qk_norm_params_receive_gradient():
     assert float(state.params["layers"][0]["q_norm"].grad.abs().sum()) > 0
 
 
-def test_a_few_steps_lower_the_loss_and_mesh_is_refused():
+def test_a_few_steps_lower_the_loss_also_over_a_mesh():
+    """Four steps lower the loss on one device and over a (dp=2, tp=2)
+    mesh of CPU shards (``tests/test_torch_mesh_train.py`` holds the mesh
+    against JAX's); a mesh the params are not sharded over is refused, and
+    so is training over sp > 1."""
+    from llm_d_kv_cache_manager_tpu_torch.parallel import MeshConfig, make_mesh
+
     cfg = tl.TINY_QWEN3_MOE
-    state = tt.make_train_state(cfg, torch.Generator().manual_seed(5), lr=1e-3, device="cpu")
     tokens = torch.from_numpy(_tokens(cfg, seed=5))
-    losses = []
-    for _ in range(4):
-        state, loss = tt.train_step(state, cfg, tokens, lr=1e-3)
-        losses.append(float(loss))
-    assert losses[-1] < losses[0] and state.step == 4
-    with pytest.raises(NotImplementedError, match="A15"):
-        tt.train_step(state, cfg, tokens, mesh=object())
+    mesh = make_mesh(MeshConfig(dp=2, tp=2), devices=["cpu"] * 4)
+    for m in (None, mesh):
+        state = tt.make_train_state(cfg, torch.Generator().manual_seed(5), lr=1e-3, device="cpu",
+                                    mesh=m)
+        losses = []
+        for _ in range(4):
+            state, loss = tt.train_step(state, cfg, tokens, lr=1e-3, mesh=m)
+            losses.append(float(loss))
+        assert losses[-1] < losses[0] and state.step == 4
+    with pytest.raises(ValueError, match="another mesh"):
+        tt.train_step(state, cfg, tokens, mesh=make_mesh(MeshConfig(tp=4), devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="sp > 1"):
+        tt.make_train_state(cfg, 5, device="cpu",
+                            mesh=make_mesh(MeshConfig(tp=2, sp=2), devices=["cpu"] * 4))
 
 
 def test_plain_grouped_matmul_differentiates_like_grouped_matmul():
