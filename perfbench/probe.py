@@ -1,0 +1,223 @@
+"""The harness's instrumentation around ``Engine.step``, from its own file.
+
+``StepProbe`` replaces the engine's ``step`` with a wrapper that records,
+for every step, its host wall interval, whether it prefilled, the decode
+model steps it ran, the contexts of the lanes it decoded (read from the
+scheduler before the step), the (chunk, context) of each row it
+prefilled, and the running total of output tokens the pod has committed.
+Everything is read from the engine's public state: ``scheduler``,
+``prefill_stats``, ``decode_stats`` and the sequences.
+
+With ``arm`` the wrapper also profiles one slice of steps with
+``torch.profiler`` (device activity only): it starts at a step boundary
+after a device synchronisation, runs until the slice has lasted
+``min_s`` and held a prefill and a decode step (or ``max_s``), and stops
+after a synchronisation at a step boundary. So the kernels in the trace
+are exactly those the slice's steps launched.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+#: seconds the profiler runs idle inside each edge of the slice: it keeps a
+#: device record only when its time, mapped onto the host clock, lies
+#: inside the trace, and that mapping can read kernels a few ms off
+PAD_S = 0.05
+
+
+@dataclass
+class Step:
+    t0: float
+    t1: float
+    prefill: bool
+    decode_steps: int
+    k: int
+    lanes: list[int] = field(default_factory=list)
+    rows: list[tuple[int, int]] = field(default_factory=list)
+    tokens: int = 0
+    in_slice: bool = False
+    #: the engine had no ready work when the step ended (the loop then
+    #: waits for arrivals)
+    idle_after: bool = False
+    #: in the profiled slice only: the distinct KV tokens the decoding
+    #: lanes' contexts cover (a page two lanes share counts once), and each
+    #: prefill row's distinct context tokens (shared with an earlier row of
+    #: the batch: counted once)
+    lane_kv_tokens: int = 0
+    row_ctx_tokens: list[int] = field(default_factory=list)
+
+    @property
+    def wall(self) -> float:
+        return self.t1 - self.t0
+
+    @property
+    def decode_only(self) -> bool:
+        return self.decode_steps > 0 and not self.prefill
+
+
+@dataclass
+class Slice:
+    """A profiled slice: its steps' indices, its host interval, and every
+    device activity record (name, start s, end s on the host clock)."""
+
+    i0: int
+    i1: int
+    t0: float
+    t1: float
+    prof: object = None
+    records: list[tuple[str, float, float]] = field(default_factory=list)
+    #: seconds the engine loop spent stopping the profiler after the slice
+    stop_s: float = 0.0
+
+
+class StepProbe:
+    def __init__(self, engine):
+        self.engine = engine
+        self.steps: list[Step] = []
+        self._finished_tokens = 0
+        self._orig = engine.step
+        self._arm: Optional[tuple[float, float, float]] = None
+        self.slice: Optional[Slice] = None
+        engine.step = self._step
+
+    def uninstall(self) -> None:
+        self.engine.step = self._orig
+
+    def reset(self) -> None:
+        """Forget recorded steps (between traffic runs in one process)."""
+        self.steps = []
+        self.slice = None
+        self._arm = None
+
+    def arm(self, at: float, min_s: float, max_s: float) -> None:
+        self._arm = (at, min_s, max_s)
+
+    def _live_tokens(self) -> int:
+        sch = self.engine.scheduler
+        return sum(s.num_generated for group in (sch.running, sch.waiting, sch.prefilling)
+                   for s in group)
+
+    def _step(self):
+        eng, sch = self.engine, self.engine.scheduler
+        if self._arm is not None and self.slice is None and time.monotonic() >= self._arm[0]:
+            self._start_slice()
+        profiling = self.slice is not None and self.slice.i1 < 0
+        lanes = [s.num_tokens for s in sch.running]
+        lane_kv = _distinct_tokens(sch.running, lanes, self.engine.page_size) if profiling else 0
+        pending = list(sch.waiting) + list(sch.prefilling)
+        before = {id(s): s.num_prefilled for s in pending}
+        n_pre = eng.prefill_stats["dispatches"]
+        n_dec = eng.decode_stats["steps"]
+        t0 = time.monotonic()
+        finished = self._orig()
+        t1 = time.monotonic()
+        prefill = eng.prefill_stats["dispatches"] > n_pre
+        dsteps = eng.decode_stats["steps"] - n_dec
+        rows, row_seqs = [], []
+        if prefill:
+            for s in pending:
+                if s.block_table and s.num_prefilled > before[id(s)]:
+                    start = max(before[id(s)], s.num_cached_prompt)
+                    rows.append((s.num_prefilled - start, start))
+                    row_seqs.append(s)
+        self._finished_tokens += sum(s.num_generated for s in finished)
+        step = Step(t0, t1, prefill, dsteps, eng.config.decode_steps_per_iter,
+                    lanes if dsteps else [], rows,
+                    self._finished_tokens + self._live_tokens(),
+                    idle_after=not eng.has_ready_work,
+                    lane_kv_tokens=lane_kv if dsteps else 0)
+        if profiling and rows:
+            step.row_ctx_tokens = _distinct_ctx_per_row(row_seqs, [c for _, c in rows],
+                                                        self.engine.page_size)
+        self.steps.append(step)
+        sl = self.slice
+        if sl is not None and sl.i1 < 0:
+            step.in_slice = True
+            self._maybe_stop_slice(t1)
+        return finished
+
+    def _start_slice(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        time.sleep(PAD_S)
+        self.slice = Slice(i0=len(self.steps), i1=-1, t0=time.monotonic(), t1=0.0, prof=prof)
+
+    def _maybe_stop_slice(self, now: float) -> None:
+        import torch
+
+        sl, (_, min_s, max_s) = self.slice, self._arm
+        steps = self.steps[sl.i0:]
+        full = any(s.prefill for s in steps) and any(s.decode_only for s in steps)
+        if not ((now - sl.t0 >= min_s and full) or now - sl.t0 >= max_s):
+            return
+        torch.cuda.synchronize()
+        sl.t1 = time.monotonic()
+        sl.i1 = len(self.steps)
+        time.sleep(PAD_S)
+        sl.prof.stop()
+        sl.stop_s = time.monotonic() - sl.t1
+
+    def read_slice(self) -> Optional[Slice]:
+        """The finished slice with its device records (None when none was
+        profiled). Reads the trace, which takes a while: call it after the
+        measured window."""
+        sl = self.slice
+        if sl is None or sl.i1 < 0:
+            return None
+        if sl.prof is not None:
+            from torch.autograd import DeviceType
+
+            recs = [(e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
+                    for e in sl.prof.events()
+                    if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+            sl.prof = None
+            # The trace's clock has a base of its own: put its first record
+            # at the first step's start. Only the idle gaps' labels read
+            # these times against the host's; the metrics read durations.
+            if recs:
+                off = self.steps[sl.i0].t0 - min(a for _, a, _ in recs)
+                sl.records = [(n, a + off, b + off) for n, a, b in recs]
+        return sl
+
+
+def _distinct_tokens(seqs, ctx_lens: list[int], page_size: int) -> int:
+    """Distinct KV tokens the contexts of ``seqs`` cover: a page several
+    lanes hold (a shared prefix) counts once, with the most tokens any of
+    them uses in it."""
+    used: dict[int, int] = {}
+    for s, n in zip(seqs, ctx_lens):
+        bt = s.block_table
+        for i in range(-(-n // page_size)):
+            if i < len(bt):
+                used[bt[i]] = max(used.get(bt[i], 0), min(page_size, n - i * page_size))
+    return sum(used.values())
+
+
+def _distinct_ctx_per_row(seqs, ctx_lens: list[int], page_size: int) -> list[int]:
+    """Each prefill row's context tokens not already held by an earlier row
+    of the batch."""
+    seen: set[int] = set()
+    out = []
+    for s, n in zip(seqs, ctx_lens):
+        pages = s.block_table[: n // page_size]
+        out.append(page_size * sum(p not in seen for p in pages))
+        seen.update(pages)
+    return out
+
+
+def merge(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:
+    """The union of ``intervals`` as disjoint intervals, in order."""
+    out: list[list[float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
