@@ -412,7 +412,8 @@ def _grouped_dot(cfg: LlamaConfig, row_group_ids: torch.Tensor):
     return gdot
 
 
-def _moe_mlp_routed(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0) -> torch.Tensor:
+def _moe_mlp_routed(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0,
+                    tap: Optional[list] = None) -> torch.Tensor:
     """Routed sparse-MoE SwiGLU FFN, expert-parallel over the tp shards of
     mesh row ``row`` (``mesh=None``: ``layers`` is one layer holding every
     expert, on ``x``'s device). Routing runs once (the router is
@@ -430,7 +431,9 @@ def _moe_mlp_routed(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: i
     Every shape is static in ``n*k`` (padded rows are routed too, as in
     JAX; no capacity factor, no dropped token), and nothing here reads a
     device value on the host. The shards' float32 combines are summed in
-    shard order and cast once, as JAX's psum of its float32 combine is."""
+    shard order and cast once, as JAX's psum of its float32 combine is.
+    ``tap``: a list each shard's group sizes are appended to (the step
+    record's expert-group counter)."""
     layers, mesh = _shards(layers, mesh, x.device)
     tp = len(layers)
     e_local = cfg.n_experts // tp
@@ -456,6 +459,8 @@ def _moe_mlp_routed(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: i
         counts = torch.zeros(e_local + 1, dtype=torch.int32, device=dev)
         counts.scatter_add_(0, expert_ids, torch.ones_like(expert_ids, dtype=torch.int32))
         group_sizes = counts[:e_local]
+        if tap is not None:
+            tap.append(group_sizes)
         ids = expert_ids[order]
         gdot = _grouped_dot(cfg, ids if tp == 1 else ids.clamp(max=e_local - 1))
         gate = cfg.act_fn(gdot(xs, layer["w_gate"], group_sizes).float())
@@ -470,7 +475,8 @@ def _moe_mlp_routed(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: i
     return coll.sum(parts, x.dtype).reshape(b, s, d)
 
 
-def _moe_mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0) -> torch.Tensor:
+def _moe_mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0,
+             tap: Optional[list] = None) -> torch.Tensor:
     """The MoE FFN over the tp shards of mesh row ``row`` (``mesh=None``:
     one layer on ``x``'s device). JAX's selection: routed, expert-parallel,
     when tp divides the expert count and ``k * tp < E`` (less work a shard
@@ -483,7 +489,7 @@ def _moe_mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0)
     layers, mesh = _shards(layers, mesh, x.device)
     tp, e = len(layers), cfg.n_experts
     if cfg.moe_dispatch == "routed" and e % tp == 0 and (tp == 1 or cfg.n_experts_per_tok * tp < e):
-        return _moe_mlp_routed(layers, cfg, x, mesh, row)
+        return _moe_mlp_routed(layers, cfg, x, mesh, row, tap)
     parts = []
     for t, (lay, dev) in enumerate(zip(layers, mesh.grid[row])):
         experts = (t * e // tp, (t + 1) * e // tp) if e % tp == 0 else None
@@ -491,12 +497,14 @@ def _moe_mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0)
     return mesh.collective.sum(parts, x.dtype)
 
 
-def _mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0) -> torch.Tensor:
+def _mlp(layers, cfg: LlamaConfig, x: torch.Tensor, mesh=None, row: int = 0,
+         tap: Optional[list] = None) -> torch.Tensor:
     """The FFN over the tp shards of mesh row ``row`` (``mesh=None``: one
     layer on ``x``'s device): each shard's column-parallel gate/up and
-    row-parallel down give a partial sum, summed over the shards."""
+    row-parallel down give a partial sum, summed over the shards. ``tap``:
+    the routed MoE's group sizes (``_moe_mlp_routed``)."""
     if cfg.n_experts:
-        return _moe_mlp(layers, cfg, x, mesh, row)
+        return _moe_mlp(layers, cfg, x, mesh, row, tap)
     layers, mesh = _shards(layers, mesh, x.device)
     parts = []
     for lay, dev in zip(layers, mesh.grid[row]):
@@ -1076,6 +1084,7 @@ def _decode_body(
     page_size: int,
     k_scales=None,  # [n_layers, pages, n_kv] f32 (int8 pools)
     v_scales=None,
+    tap: Optional[list] = None,
 ) -> torch.Tensor:
     """One decode step over the tp shards of the first mesh row (one token
     a lane has nothing to split over sp): each shard projects its heads
@@ -1122,7 +1131,7 @@ def _decode_body(
         parts = [a.reshape(b, -1) @ _w(lay["wo"], h.dtype) for a, lay in zip(attn, layers)]
         h = h + coll.sum(parts, h.dtype)[:, None, :]
         x = rms_norm(h, layers[0]["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-        h = h + _mlp(layers, cfg, x, mesh)
+        h = h + _mlp(layers, cfg, x, mesh, tap=tap)
     for t, dev in enumerate(devs):
         _write_kv(
             k_pages[t], v_pages[t], None if k_scales is None else k_scales[t],
@@ -1180,21 +1189,30 @@ def decode_steps(
     k_scales=None,
     v_scales=None,
     mesh=None,
+    expert_groups: Optional[torch.Tensor] = None,
 ) -> tuple:
     """``num_steps`` decode iterations with on-device sampling; returns
     (sampled tokens [b, num_steps] int32, k_pages, v_pages), with
     (k_scales, v_scales) appended for int8 pools. The caller pre-extends
     ``block_tables`` to cover the growth. Under ``mesh`` every input and
-    the sampled tokens live on the first shard's device."""
+    the sampled tokens live on the first shard's device.
+    ``expert_groups`` ([num_steps] int32 on the first shard's device, MoE
+    models): step ``i`` writes into it the sum over layers and shards of
+    the expert groups that hold a row, as the grouped matmuls receive them
+    (padded lanes route too), with four kernels a step."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must be passed together")
     sharded = _placed(params, mesh, tokens.device)
     toks = []
-    for _ in range(num_steps):
+    for i in range(num_steps):
+        tap = [] if expert_groups is not None else None
         logits = _decode_body(
             sharded, cfg, tokens, positions, k_pages, v_pages, block_tables,
-            seq_lens, page_size, k_scales, v_scales,
+            seq_lens, page_size, k_scales, v_scales, tap,
         )
+        if tap:
+            sizes = torch.stack([sharded.mesh.collective.move(g, expert_groups.device) for g in tap])
+            expert_groups[i] = (sizes > 0).sum()
         tokens = sample_tokens(logits, temperature, top_k, top_p, generator)
         toks.append(tokens)
         positions = positions + 1

@@ -40,12 +40,25 @@ instead of some twenty kernel launches a layer a step.
 - A sharded engine's bursts (``mesh``) are captured as today when every
   shard shares one device. Shards on distinct devices cannot share one
   graph: their bursts run eagerly, and ``capture`` is False.
+- With ``clock`` set (the engine's step record is on), each burst also
+  carries its device interval, from its first kernel to its sampled ids'
+  copy, and a MoE model's graphs captured meanwhile count the expert
+  groups each model step's rows touch (``llama.decode_steps``'
+  ``expert_groups``), copied to the host with the sampled ids. A graph
+  captured meanwhile records its start event itself, as its first node,
+  so the interval holds none of the host's launch; each replay records that
+  one event again, so the previous burst's start is read before the graph
+  is replayed (it has passed by then, or passes at once: the host has
+  waited for the burst before that one). On the CPU the marks are the host
+  clock. Graphs captured with it off count nothing and hold no event;
+  nothing is added to a capture while it is off.
 
 A capture or replay failure raises; there is no eager fallback on CUDA.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -96,6 +109,13 @@ class CapturedBurst:
     out: Optional[torch.Tensor] = None
     launches: dict = field(default_factory=dict)
     plans: dict = field(default_factory=dict)
+    #: [k] int32 on the device: the expert groups each model step touched
+    #: (None when the capture counted nothing)
+    groups: Optional[torch.Tensor] = None
+    #: the timing event the graph records as its first node (None when
+    #: captured with the clock off), and the latest burst it marked
+    start: Optional[torch.cuda.Event] = None
+    last: Optional["Burst"] = None
 
     def replay(self) -> torch.Tensor:
         if self.graph is None:
@@ -107,19 +127,30 @@ class CapturedBurst:
 
 class Burst:
     """The sampled ids of one dispatched burst on their way to the host;
-    ``key`` is the (k, block-table width) of the graph that sampled them."""
+    ``key`` is the (k, block-table width) of the graph that sampled them.
+    With the clock on, ``start``/``stop`` mark its device interval (a
+    passed start already on the clock, in ns) and ``groups`` holds its
+    expert-group counts on their way to the host."""
 
     def __init__(self, host: torch.Tensor, event: Optional[torch.cuda.Event],
-                 key: tuple[int, int]):
+                 key: tuple[int, int], start=None, stop=None,
+                 groups: Optional[torch.Tensor] = None):
         self._host = host
         self._event = event
         self.key = key
+        self.start, self.stop = start, stop
+        self._groups = groups
 
     def tokens(self) -> np.ndarray:
         """``[lanes, k]`` int32; waits for this burst's copy only."""
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy().copy()
+
+    def expert_groups(self) -> Optional[list[int]]:
+        """The expert groups each model step touched (read after
+        ``tokens``, whose wait covers their copy); None when not counted."""
+        return None if self._groups is None else self._groups.tolist()
 
 
 class DecodeGraphs:
@@ -154,13 +185,18 @@ class DecodeGraphs:
         # pipelined engine reads burst N's ids while burst N+1 is in flight.
         self._stage = [self._staging(max_pages) for _ in range(2)]
         self._uploaded: list[Optional[torch.cuda.Event]] = [None, None]
-        self._host: dict[int, list[torch.Tensor]] = {}
+        #: k -> two (sampled ids, expert groups) pinned host buffers
+        self._host: dict[int, list[tuple[torch.Tensor, torch.Tensor]]] = {}
         self._turn = 0
         self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
         self._stream = torch.cuda.Stream(device) if self._cuda else None
         #: model steps run eagerly by the warm-up (their kernel launches are
         #: real and counted)
         self.warmup_steps = 0
+        #: the step record's ``to_ns`` while it is on (see the module
+        #: docstring), else None
+        self.clock: Optional[Callable] = None
+        self._count_groups = bool(cfg.n_experts) and cfg.moe_dispatch == "routed"
 
     @property
     def keys(self) -> list[tuple[int, int]]:
@@ -184,7 +220,8 @@ class DecodeGraphs:
         stage["table"] = torch.zeros(self.lanes * max_pages, dtype=torch.int32, pin_memory=pin)
         return stage
 
-    def _burst(self, k: int, inputs: dict, table: torch.Tensor) -> torch.Tensor:
+    def _burst(self, k: int, inputs: dict, table: torch.Tensor,
+               groups: Optional[torch.Tensor] = None) -> torch.Tensor:
         pools = self._pools
         return llama.decode_steps(
             self.params, self.cfg, inputs["tokens"], inputs["positions"],
@@ -192,6 +229,7 @@ class DecodeGraphs:
             inputs["temperature"], inputs["top_k"], inputs["top_p"], self._generator,
             page_size=self.page_size, num_steps=k,
             k_scales=pools["k_scales"], v_scales=pools["v_scales"], mesh=self.mesh,
+            expert_groups=groups,
         )[0]
 
     def _warmup(self, k: int, width: int) -> None:
@@ -216,24 +254,32 @@ class DecodeGraphs:
             table = self._tables[width] = torch.zeros(
                 (self.lanes, width), dtype=torch.int32, device=self.device)
 
+        groups = None
+        if self.clock and self._count_groups:
+            groups = torch.zeros(k, dtype=torch.int32, device=self.device)
+
         def fn():
-            return self._burst(k, self._inputs, table)
+            return self._burst(k, self._inputs, table, groups)
 
         if not self.capture:
-            return CapturedBurst(None, fn)
+            return CapturedBurst(None, fn, groups=groups)
         if not self.warmup_steps:
             self._warmup(k, width)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
+        # An external event is recorded by the graph itself on each replay.
+        start = torch.cuda.Event(enable_timing=True, external=True) if self.clock else None
 
         def capture():
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
+                if start is not None:
+                    start.record()
                 return fn()
 
         out, launches = count_launches(capture)
         plans = {name: getattr(ops.COUNTED[name], "last_plan", None) for name in launches}
-        return CapturedBurst(graph, fn, out, launches, plans)
+        return CapturedBurst(graph, fn, out, launches, plans, groups, start)
 
     def dispatch(self, k: int, tokens: Optional[np.ndarray], positions: np.ndarray,
                  seq_lens: np.ndarray, block_tables: np.ndarray, temperature: np.ndarray,
@@ -266,16 +312,48 @@ class DecodeGraphs:
             self._uploaded[slot] = torch.cuda.Event()
             self._uploaded[slot].record()
 
+        start = None
+        if self.clock:
+            start = burst.start if burst.start is not None else self._mark()
+            if burst.last is not None:
+                # This replay records the graph's start event again: place
+                # the last burst's start on the clock first.
+                start.synchronize()
+                burst.last.start = self.clock(start)
+                burst.last = None
         out = burst.replay()
         outs = self._host.get(k)
         if outs is None:
-            outs = self._host[k] = [torch.zeros((lanes, k), dtype=torch.int32,
-                                                pin_memory=self._cuda) for _ in range(2)]
-        outs[slot].copy_(out, non_blocking=True)
+            outs = self._host[k] = [
+                (torch.zeros((lanes, k), dtype=torch.int32, pin_memory=self._cuda),
+                 torch.zeros(k, dtype=torch.int32, pin_memory=self._cuda)) for _ in range(2)]
+        ids, groups = outs[slot]
+        ids.copy_(out, non_blocking=True)
+        if start is not None and burst.groups is not None:
+            groups.copy_(burst.groups, non_blocking=True)
+        else:
+            groups = None
+        # After the copies: the burst's interval ends where its ids land,
+        # and the host waits on the same event.
+        stop = self._mark() if start is not None else None
         event = None
         if self._cuda:
-            event = torch.cuda.Event()
-            event.record()
+            event = stop
+            if event is None:
+                event = torch.cuda.Event()
+                event.record()
         if self._chain:
             self._inputs["tokens"].copy_(out[:, -1])
-        return Burst(outs[slot], event, (k, width))
+        out = Burst(ids, event, (k, width), start, stop, groups)
+        if start is not None and burst.start is not None:
+            burst.last = out
+        return out
+
+    def _mark(self):
+        """A timing event recorded on the current stream (the card), or
+        the host clock (the CPU, where a burst runs as it is called)."""
+        if not self._cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev

@@ -20,8 +20,10 @@ to a pinned host slot pool, prefix hits restore them, gated by the
 recompute-vs-restore cost model; see "Host-DRAM tier" below), and
 cross-pod KV transfer (``kv_block_bytes``, ``export_kv_blocks``,
 ``import_kv_blocks``; see "KV transfer" below), and the step telemetry
-behind the pod's ``OBS_METRICS`` (``obs_step_timing``, ``step_stats``,
-host clocks as in the JAX engine), and the fleet's knob-gated tiers: the
+behind the pod's ``OBS_METRICS`` (``obs_step_timing``: the step record of
+``server/step_record.py``, every step's host and device spans and
+counters, and ``step_stats``, the JAX engine's host-clock phases folded
+from it), and the fleet's knob-gated tiers: the
 remote tier (``remote_tier``, ``remote_store_pages``: last-copy evictions
 demote to a peer's store, see "Remote tier" below), KV-block integrity
 (``kv_integrity``: write-time digests verified at every tier transition,
@@ -156,6 +158,7 @@ from .decode_graphs import DecodeGraphs
 from ..ops.sampling import sample_tokens
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence, SequenceStatus
+from .step_record import ANCHOR_AGE_NS, EngineSequence, StepRecord
 
 log = get_logger("server.engine")
 
@@ -589,17 +592,20 @@ class Engine:
             "deadline_expired": 0,
             "aborted": 0,
         }
-        #: engine-step telemetry, the JAX engine's phases and keys:
-        #: cumulative host wall seconds per phase — schedule, prefill
-        #: (dispatch + sampling), decode (dispatch + commit), sample (the
-        #: blocking fetch of sampled ids, a slice of prefill/decode), gather
-        #: (page moves between tiers, enqueued on the streams), demote (the
-        #: remote tier's demotion payloads, their copy back included), publish
-        #: (finish detection + KV-event flush). Host clocks on an asynchronous device: a graph
-        #: replay's decode seconds are its launch, and the wait for the
-        #: device lands in ``sample_s`` where the sampled ids are read.
-        #: Off by default: ``obs_step_timing=False`` reads no clock.
-        self.obs_step_timing = False
+        #: the step record (``server/step_record.py``): None while
+        #: ``obs_step_timing`` is off, when no clock is read for it
+        self.step_record: Optional[StepRecord] = None
+        #: engine-step telemetry, the JAX engine's phases and keys, folded
+        #: from the step record: cumulative host wall seconds per phase —
+        #: schedule, prefill (dispatch + sampling), decode (dispatch +
+        #: commit), sample (the blocking fetch of sampled ids, a slice of
+        #: prefill/decode), gather (page moves between tiers, enqueued on
+        #: the streams), demote (the remote tier's demotion payloads, their
+        #: copy back included), publish (finish detection + KV-event flush).
+        #: Host clocks on an asynchronous device: a graph replay's decode
+        #: seconds are its launch, and the wait for the device lands in
+        #: ``sample_s`` where the sampled ids are read; the device's own
+        #: time is in the record's ``device.*`` spans.
         self.step_stats = {
             "steps": 0,
             "schedule_s": 0.0,
@@ -610,6 +616,22 @@ class Engine:
             "demote_s": 0.0,
             "publish_s": 0.0,
         }
+
+    @property
+    def obs_step_timing(self) -> bool:
+        """Step telemetry: the step record, ``step_stats`` and the decode
+        graphs' expert-group counter (in graphs captured while it is on).
+        Off by default."""
+        return self.step_record is not None
+
+    @obs_step_timing.setter
+    def obs_step_timing(self, on: bool) -> None:
+        if bool(on) == (self.step_record is not None):
+            return
+        self.step_record = (
+            StepRecord(self._compute_stream(), self.device, self.step_stats) if on else None
+        )
+        self.decode_graphs.clock = self.step_record.to_ns if on else None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -681,9 +703,9 @@ class Engine:
         #: work, pages = host blocks brought back ahead of allocate, seqs =
         #: waiting sequences whose chains were warmed
         self.host_prefetch_stats = {"rounds": 0, "pages": 0, "seqs": 0}
-        #: (pages, start_mono, end_mono) of the latest prefetch round that
-        #: moved pages
-        self.last_prefetch: Optional[tuple[int, float, float]] = None
+        #: (pages, start_ns, end_ns) on ``time.monotonic_ns`` of the latest
+        #: prefetch round that moved pages; the pod loop takes it
+        self.last_prefetch: Optional[tuple[int, int, int]] = None
         #: per-step prefetch page cap: one prefill batch's worth of pages
         self._prefetch_page_cap = max(1, config.scheduler.max_prefill_tokens // ps)
         #: host-tier copies: flushes and the host seconds they took to
@@ -1141,7 +1163,7 @@ class Engine:
         head = list(itertools.islice(self.scheduler.waiting, self.config.scheduler.max_prefill_batch))
         pages = 0
         seqs = 0
-        t0 = time.monotonic()
+        t0 = time.monotonic_ns()
         for seq in head:
             if budget <= 0:
                 break
@@ -1157,7 +1179,9 @@ class Engine:
             self.host_prefetch_stats["rounds"] += 1
             self.host_prefetch_stats["pages"] += pages
             self.host_prefetch_stats["seqs"] += seqs
-            self.last_prefetch = (pages, t0, time.monotonic())
+            rec = self.step_record
+            t1 = rec.host("engine.host_prefetch", t0) if rec else time.monotonic_ns()
+            self.last_prefetch = (pages, t0, t1)
 
     def _stage_host_reads(self) -> None:
         """Start the host-to-device copies of every slot that a queued
@@ -1373,9 +1397,9 @@ class Engine:
         stats["restored"] += len(restores)
         host_s = time.perf_counter() - t_host - demote_s
         stats["flush_host_s"] += host_s
-        if self.obs_step_timing:
-            self.step_stats["gather_s"] += host_s
-            self.step_stats["demote_s"] += demote_s
+        if self.step_record:
+            self.step_record.count("gather_s", host_s)
+            self.step_record.count("demote_s", demote_s)
 
     def _gather_pages(self, pages: list[int]) -> list[torch.Tensor]:
         """Device pages ``pages`` of every pool, slot-major ``[n, L, ...]``
@@ -1676,7 +1700,7 @@ class Engine:
                 f"prompt needs {prompt_pages} pages but the pool holds only "
                 f"{self.config.block_manager.total_pages - 1}"
             )
-        seq = Sequence(
+        seq = EngineSequence(
             prompt_tokens=list(prompt_tokens),
             sampling=sampling or SamplingParams(),
             request_id=request_id,
@@ -1684,6 +1708,7 @@ class Engine:
             tenant=tenant,
             priority=priority,
             qos_weight=qos_weight,
+            commit_times=[] if self.step_record else None,
         )
         if deadline is not None:
             self._deadlines_used = True
@@ -1842,8 +1867,8 @@ class Engine:
         """One engine iteration — a prefill batch or a decode step, or with
         chunked prefill a mixed step (prefill chunks, then the running
         lanes' decode). Returns sequences finished this step."""
-        timed = self.obs_step_timing
-        t0 = time.perf_counter() if timed else 0.0
+        rec = self.step_record
+        t_step = rec.begin() if rec else 0
         shed: list[Sequence] = []
         if self._deadlines_used:
             # Deadline shedding BEFORE scheduling: an expired waiting seq
@@ -1864,17 +1889,13 @@ class Engine:
             # waits for what has not landed.
             self._prefetch_host_pages()
         out = self.scheduler.schedule()
-        if timed:
-            t1 = time.perf_counter()
-            self.step_stats["schedule_s"] += t1 - t0
+        if rec:
+            rec.host("engine.schedule", t_step)
         if out.prefill:
             # Prefill must see committed decode state (page accounting,
             # finish detection): it never overlaps an in-flight burst.
-            self._drain_inflight()
+            self._drain_inflight(timed=True)
             self._run_prefill(out.prefill, out.chunks)
-        if timed:
-            t2 = time.perf_counter()
-            self.step_stats["prefill_s"] += t2 - t1
         if out.decode:
             # Mixed step: the lanes were snapshotted at schedule time — a
             # final chunk published above joins next step, and lanes its
@@ -1882,11 +1903,9 @@ class Engine:
             # block_table/finish filters.
             self._run_decode(out.decode)
         elif not out.prefill:
-            self._drain_inflight()
-        if timed:
-            t3 = time.perf_counter()
-            self.step_stats["decode_s"] += t3 - t2
+            self._drain_inflight(timed=True)
 
+        t_publish = rec.now() if rec else 0
         newly_finished = list(shed)
         for seq in list(self.scheduler.running):
             if self._should_finish(seq):
@@ -1896,9 +1915,9 @@ class Engine:
                 newly_finished.append(seq)
 
         self.block_manager.flush_events()
-        if timed:
-            self.step_stats["publish_s"] += time.perf_counter() - t3
-            self.step_stats["steps"] += 1
+        if rec:
+            rec.host("engine.publish", t_publish)
+            rec.end(t_step)
         self._step_count += 1
         return newly_finished
 
@@ -1933,6 +1952,8 @@ class Engine:
         already resident — its prefix-cache hit, plus the pages its earlier
         chunks wrote. Only a sequence's final chunk samples a first token
         and publishes it to the decode lanes."""
+        rec = self.step_record
+        t0 = rec.now() if rec else 0
         ps = self.page_size
         if chunks is None:
             chunks = [s.prompt_remaining for s in seqs]
@@ -1971,6 +1992,8 @@ class Engine:
         # attention reads them, spilled pages are copied before this
         # prefill overwrites them.
         self._flush_page_moves()
+        if rec:
+            t0 = rec.host("engine.prefill.prepare", t0)
         span = _Span(self._compute_stream())
         # The pools (and scale pools) are written in place.
         logits = llama.prefill(
@@ -1990,15 +2013,21 @@ class Engine:
             attn_impl=self.prefill_attn,
             mesh=self.mesh,
         )[0]
+        if rec:
+            t0 = rec.host("engine.prefill.launch", t0)
         first_tokens = self._sample(logits, seqs)  # syncs the dispatch
         # Prefill-rate sample of the cost model: chunk tokens over the
         # dispatch's time (from after the flush's restores on the card).
         span.end(self._compute_stream()).wait()
-        self._prefill_rate = self._ema(
-            self._prefill_rate, float(valid.sum()) / max(span.seconds(), 1e-6)
-        )
-        self.prefill_stats["tokens_computed"] += int(valid.sum())
+        n_valid = int(valid.sum())
+        self._prefill_rate = self._ema(self._prefill_rate, n_valid / max(span.seconds(), 1e-6))
+        self.prefill_stats["tokens_computed"] += n_valid
         self.prefill_stats["dispatches"] += 1
+        if rec:
+            t0 = rec.host("engine.prefill.sample", t0)
+            rec.count("prefill_rows", b)
+            rec.count("prefill_chunk", chunk)
+            rec.count("prefill_valid_tokens", n_valid)
         now = time.monotonic()
         finals = [
             seq for seq, n in zip(seqs, chunks)
@@ -2019,8 +2048,12 @@ class Engine:
                 seq.num_generated += 1
                 if seq.first_token_time is None:
                     seq.first_token_time = now
+                if rec and seq.commit_times is not None:
+                    seq.commit_times.append((t0, 1))
                 self._append_slot_or_preempt(seq)
             self.block_manager.register_full_pages(seq)
+        if rec:
+            rec.host("engine.prefill.commit", t0)
 
     def _decode_table_width(self, seqs: list[Sequence]) -> int:
         """Block-table width for this decode call: longest active context in
@@ -2071,6 +2104,8 @@ class Engine:
         lanes = self.config.decode_batch_size
         if len(seqs) > lanes:
             raise RuntimeError(f"{len(seqs)} running sequences exceed {lanes} decode lanes")
+        rec = self.step_record
+        t0 = rec.now() if rec else 0
 
         prev = self._inflight
         if prev is not None:
@@ -2182,7 +2217,11 @@ class Engine:
             "k": k,
             "positions": positions,
             "seq_lens": seq_lens,
+            "entry": rec.current if rec else None,
         }
+        if rec:
+            rec.host("engine.decode.launch", t0)
+            rec.count("decode_steps", k)
         if prev is not None:
             # Commit burst N while burst N+1 executes on the device.
             self._inflight = None
@@ -2264,6 +2303,8 @@ class Engine:
         ``num_computed``; nothing attends past ``seq_len`` and page
         registration is bounded by ``num_computed``, so rollback is
         bookkeeping."""
+        rec = self.step_record
+        t0 = rec.now() if rec else 0
         ps = self.page_size
         k = self.config.spec_k
         rounds = self.config.spec_rounds
@@ -2358,11 +2399,13 @@ class Engine:
             attn_impl=self.prefill_attn,
             mesh=self.mesh,
         )[0]
+        if rec:
+            t0 = rec.host("engine.decode.launch", t0)
+            rec.count("decode_steps", rounds)
         # The one host sync of the burst: one fetch of the packed result.
-        t_fetch = time.perf_counter() if self.obs_step_timing else 0.0
         packed = packed.cpu().numpy()  # [rounds, b, k + 4]
-        if self.obs_step_timing:
-            self.step_stats["sample_s"] += time.perf_counter() - t_fetch
+        if rec:
+            t0 = rec.host("engine.decode.wait", t0)
         emit = packed[..., : k + 1]
         emit_len = packed[..., k + 1]
         prop_len = packed[..., k + 2]
@@ -2373,6 +2416,7 @@ class Engine:
         for i, seq in enumerate(active):
             if not seq.block_table:
                 continue  # preempted by a batchmate's post-emit append
+            n = seq.num_generated
             for r in range(rounds):
                 if self._should_finish(seq):
                     break  # later rounds are surplus (discarded)
@@ -2389,6 +2433,8 @@ class Engine:
                     seq.num_computed = seq.num_tokens
                     seq.output_tokens.append(int(emit[r, i, j]))
                     seq.num_generated += 1
+            if rec and seq.commit_times is not None and seq.num_generated > n:
+                seq.commit_times.append((t0, seq.num_generated - n))
             # The reservation covered the burst's writes exactly; a full
             # acceptance in the last committed round moves num_tokens past
             # them, so the next dispatch's input slot is ensured here, as
@@ -2396,27 +2442,44 @@ class Engine:
             if not self._should_finish(seq):
                 self._append_slot_or_preempt(seq)
             self.block_manager.register_full_pages(seq)
+        if rec:
+            rec.host("engine.decode.commit", t0)
         return True
 
-    def _drain_inflight(self) -> None:
+    def _drain_inflight(self, timed: bool = False) -> None:
+        """Commit the in-flight burst, if any; ``timed``: as the step's
+        ``engine.drain`` span."""
         if self._inflight is None:
             return
+        rec = self.step_record if timed else None
+        t0 = rec.now() if rec else 0
         burst, self._inflight = self._inflight, None
         self._commit_burst(burst)
+        if rec:
+            rec.host("engine.drain", t0)
+            rec.refresh(ANCHOR_AGE_NS)
 
     def _commit_burst(self, burst: dict) -> None:
         # [lanes, k] from pinned host memory: waits on this burst's copy
         # event, the one host sync of a burst.
-        timed = self.obs_step_timing
-        t0 = time.perf_counter() if timed else 0.0
-        toks = burst["toks"].tokens()
-        if timed:
+        rec = self.step_record
+        t0 = rec.now() if rec else 0
+        out = burst["toks"]
+        toks = out.tokens()
+        if rec:
             # The blocking share of the sampled-id fetch: near zero when a
             # pipelined burst's copy already landed.
-            self.step_stats["sample_s"] += time.perf_counter() - t0
+            t0 = rec.host("engine.decode.wait", t0)
+            entry = burst["entry"]
+            if out.start is not None:
+                rec.device(entry, "device.decode", out.start, out.stop)
+            groups = out.expert_groups()
+            if groups is not None and entry is not None:
+                entry.counters.setdefault("k4_touched", []).extend(groups)
         for i, seq in enumerate(burst["active"]):
             if not seq.block_table:
                 continue  # preempted after this burst was dispatched
+            n = seq.num_generated
             for j in range(burst["k"]):
                 # Pre-check keeps num_generated <= max_new_tokens even when
                 # a reservation abort clamped the cap before the burst ran.
@@ -2425,7 +2488,11 @@ class Engine:
                 seq.num_computed = seq.num_tokens
                 seq.output_tokens.append(int(toks[i, j]))
                 seq.num_generated += 1
+            if rec and seq.commit_times is not None and seq.num_generated > n:
+                seq.commit_times.append((t0, seq.num_generated - n))
             self.block_manager.register_full_pages(seq)
+        if rec:
+            rec.host("engine.decode.commit", t0)
 
     def _reserve_slots_or_preempt(self, seq: Sequence, n: int) -> None:
         """Ensure ``seq`` can grow by ``n`` tokens, preempting on pool
@@ -2503,6 +2570,7 @@ class Engine:
                 self.scheduler.on_preempted(victim)
                 self.block_manager.free_sequence(victim)
                 victim.fold_for_preemption()
+                victim.num_preemptions += 1
                 self.scheduler.waiting.appendleft(victim)
 
     def _preempt_for_priority(self) -> None:
@@ -2540,6 +2608,7 @@ class Engine:
         sch.on_preempted(victim)
         self.block_manager.free_sequence(victim)
         victim.fold_for_preemption()
+        victim.num_preemptions += 1
         sch.waiting.append(victim)  # the next reorder places it by class
         # The key appears only once a preemption happened (TENANT_QOS on),
         # so the knobs-off /stats payload is unchanged.
@@ -2556,15 +2625,10 @@ class Engine:
             temperature[i] = seq.sampling.temperature
             top_k[i] = seq.sampling.top_k
             top_p[i] = seq.sampling.top_p
-        timed = self.obs_step_timing
-        t0 = time.perf_counter() if timed else 0.0
-        out = sample_tokens(
+        return sample_tokens(
             logits.float(),
             self._to_device(temperature),
             self._to_device(top_k),
             self._to_device(top_p),
             self._generator,
         ).cpu().numpy()
-        if timed:
-            self.step_stats["sample_s"] += time.perf_counter() - t0
-        return out

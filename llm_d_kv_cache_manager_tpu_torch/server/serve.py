@@ -1187,9 +1187,10 @@ class PodServer:
         if engine is not None and on_events is not None:
             self.engine.block_manager.on_events = on_events
         if self.config.obs_metrics or self.config.obs_flight:
-            # The flight recorder's step ring needs the phase deltas, so
-            # OBS_FLIGHT implies engine step timing even without
-            # OBS_METRICS (same clocks, no new series).
+            # The engine's step record (``server/step_record.py``). The
+            # flight recorder's step ring needs its phases, so OBS_FLIGHT
+            # implies it even without OBS_METRICS (same clocks, no new
+            # series).
             self.engine.obs_step_timing = True
 
         #: HTTP threads only touch the staging deques; the engine itself is
@@ -1828,6 +1829,8 @@ class PodServer:
                         self._work.wait(timeout=0.1)
                     if not self._running:
                         return
+                    rec = self.engine.step_record
+                    t_admit = rec.now() if rec else 0
                     staged = list(self._staging)
                     self._staging.clear()
                     aborts = list(self._aborts)
@@ -1963,7 +1966,10 @@ class PodServer:
                                 if self._loop_lag_s is None
                                 else 0.7 * self._loop_lag_s + 0.3 * sample
                             )
+                    if rec:
+                        rec.pod("pod.admit", t_admit, before_step=True)
                     finished = self.engine.step()
+                    t_resolve = rec.now() if rec else 0
                     if self.flight is not None:
                         # Per-step telemetry onto the flight ring: phase
                         # deltas (step timing is on under the knob) and the
@@ -1983,12 +1989,12 @@ class PodServer:
                         # prefetch round (noop with both OBS_* knobs off).
                         self.engine.last_prefetch = None
                         pages, t0, t1 = lp
-                        self.metrics.observe_host_prefetch(t1 - t0)
+                        self.metrics.observe_host_prefetch((t1 - t0) / 1e9)
                         self.tracer.record_span(
                             "pod.host_bringback",
                             None,
-                            t0,
-                            t1,
+                            t0 / 1e9,
+                            t1 / 1e9,
                             attrs={"pages": pages, "pod": self.config.pod_identifier},
                         )
                     if self.transfer_cost_model is not None and self.engine._prefill_rate:
@@ -2025,6 +2031,8 @@ class PodServer:
                             self.metrics.sync_host_stats(bm.host_stats, bm.num_host_cached_pages)
                     for seq in finished:
                         self._resolve(seq)
+                    if rec:
+                        rec.pod("pod.resolve", t_resolve, before_step=False)
         except Exception as e:  # engine wedged: fail fast and visibly
             log.exception("engine loop died")
             self._failed = f"{type(e).__name__}: {e}"
