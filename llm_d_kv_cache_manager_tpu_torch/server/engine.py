@@ -36,11 +36,13 @@ acceptance and ``spec_sample`` on the device, ``spec_rounds`` rounds a
 host sync; see ``_run_decode_spec``), and sharded serving (``tp``,
 ``sp``, ``mesh=``: see "Meshes" below).
 
-Shapes stay bucketed as in the JAX engine (prefill batch padded to
-``max_prefill_batch``, chunk length to ``prefill_bucket``, decode lanes to
-``decode_batch_size``), so the page-pool bytes the port writes match the
+Shapes stay bucketed as in the JAX engine (chunk length to
+``prefill_bucket``, context pages to ``prefill_ctx_bucket``, decode lanes
+to ``decode_batch_size``), so the page-pool bytes the port writes match the
 JAX package's, padded decode lanes included (they write reserved page 0,
-slot 0).
+slot 0). A prefill dispatch has one row a scheduled sequence, not JAX's
+``max_prefill_batch``: XLA pads for a fixed shape and drops a padded row's
+writes, so the rows left out wrote nothing and the pools still match.
 
 The engine runs on CUDA (prefill through the flash-prefill kernel, decode
 through the paged-decode kernel) unless it is built with ``device="cpu"``,
@@ -1957,10 +1959,10 @@ class Engine:
         ps = self.page_size
         if chunks is None:
             chunks = [s.prompt_remaining for s in seqs]
-        # Bucketed shapes: batch padded to the configured prefill width,
-        # chunk length and context pages bucketed.
+        # One row a scheduled sequence (the eager prefill needs no fixed
+        # batch width); chunk length and context pages bucketed.
         chunk = _round_up(max(chunks), self.config.prefill_bucket)
-        b = self.config.scheduler.max_prefill_batch
+        b = len(seqs)
 
         tokens = np.zeros((b, chunk), np.int32)
         positions = np.zeros((b, chunk), np.int32)
@@ -2621,7 +2623,7 @@ class Engine:
         temperature = np.zeros((b,), np.float32)
         top_k = np.zeros((b,), np.int32)
         top_p = np.ones((b,), np.float32)
-        for i, seq in enumerate(seqs[:b]):
+        for i, seq in enumerate(seqs):
             temperature[i] = seq.sampling.temperature
             top_k[i] = seq.sampling.top_k
             top_p[i] = seq.sampling.top_p

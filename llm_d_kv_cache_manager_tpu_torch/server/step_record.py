@@ -22,7 +22,7 @@ Each entry (``StepEntry``) holds:
   sampled ids' copy, read once its end has passed at the burst's commit,
   so it adds no host sync. A pipelined burst's span lands in the entry of
   the step that launched it;
-- ``counters``: ``prefill_rows`` (rows dispatched, padding included),
+- ``counters``: ``prefill_rows`` (rows dispatched, one a scheduled sequence),
   ``prefill_chunk`` and ``prefill_valid_tokens`` of a prefill dispatch
   (computed tokens are rows × chunk); ``decode_steps`` (the model steps of
   the step's decode dispatch) and, when the decode graphs were captured

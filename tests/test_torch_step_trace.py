@@ -209,14 +209,15 @@ def test_every_span_name_is_listed():
 
 # -- counters ----------------------------------------------------------------
 def test_prefill_padding_counters_by_hand():
-    """Two prompts of 19 and 5 tokens into a batch of 4 rows: one chunk of
-    64 (the bucket), 24 valid tokens of 256 computed."""
+    """Two prompts of 19 and 5 tokens at a prefill width of 4: one row a
+    prompt, one chunk of 64 (the bucket), 24 valid tokens of 128
+    computed."""
     eng = _engine(batch=4)
     eng.add_request(_prompt(1, 19), SamplingParams(max_new_tokens=2))
     eng.add_request(_prompt(2, 5), SamplingParams(max_new_tokens=2))
     eng.step()
     c = eng.step_record.entries[0].counters
-    assert (c["prefill_rows"], c["prefill_chunk"], c["prefill_valid_tokens"]) == (4, 64, 24)
+    assert (c["prefill_rows"], c["prefill_chunk"], c["prefill_valid_tokens"]) == (2, 64, 24)
 
 
 def _routing_counts(monkeypatch):
