@@ -19,7 +19,7 @@ import torch
 
 from . import check, pod, spec
 from .load import LoadGenerator, Plan
-from .model import Dims, dims
+from .model import Dims
 from .probe import Slice, Step, StepProbe
 from .weights import Weights
 
@@ -98,7 +98,8 @@ class Bench:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.m = dims(cell.hf)
+        self.arch = spec.architecture(cell.hf["model_type"], cell.root)
+        self.m = self.arch.dims(cell.hf)
         self.kind = spec.traffic_kind(cell.mix["kind"], cell.root)
         self.split: dict = {}
 
@@ -119,14 +120,15 @@ class Bench:
             _build.build()
         self.split["kernel_load_s"] = time.monotonic() - t
         t = time.monotonic()
-        self.weights = Weights(self.m, self.seed, self.device)
+        self.weights = Weights(self.arch, self.m, self.seed, self.device)
         self._sync()
         self.split["weights_s"] = time.monotonic() - t
         t = time.monotonic()
         self.sink = pod.EventSink()
         self.server, self.engine = pod.build_pod(
-            self.m, self.cell.pod, self.weights.params, self.seed, self.device, self.sink.endpoint)
-        self.probe = StepProbe(self.engine)
+            self.arch.engine_model(self.m), self.cell.pod, self.weights.params, self.seed,
+            self.device, self.sink.endpoint)
+        self.probe = StepProbe(self.engine, tuple(self.m.spans))
         self._sync()
         self.split["pod_s"] = time.monotonic() - t
         warm = pod.warm_up(self.server, self.engine, plan, self.seed, self.m.vocab)
@@ -190,4 +192,4 @@ class Bench:
         picked = check.pick(run.sample, seed, self.cell.check_tokens)
         if not picked:
             return dict.fromkeys(check.NUMBERS, None) | {"tokens": 0, "requests": 0}
-        return check.served_gap(self.m, seed, picked, self.device)
+        return check.served_gap(self.arch, self.m, seed, picked, self.device)

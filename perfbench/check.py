@@ -3,10 +3,11 @@ the plain float32 reference.
 
 Once the window has closed and the program is freed, a sample of the
 window's finished requests, drawn from the seed with the longest in it,
-is run through ``reference/`` over each prompt and its served tokens,
-with the weights drawn again from the seed. At every served position the
-gap is the reference's best logit less the logit of the token the pod
-served. Three numbers come of it: the widest gap, the mean gap, and the
+is run through the plain reference of the cell's architecture
+(``architectures/<model_type>.py``'s ``forward``) over each prompt and
+its served tokens, with the weights drawn again from the seed. At every
+served position the gap is the reference's best logit less the logit of
+the token the pod served. Three numbers come of it: the widest gap, the mean gap, and the
 share of the served positions whose gap passes ``WIDE_GAP``; a cell's
 file names the ones it holds to a limit.
 The control (``control_gap``) reads the same numbers for the token the
@@ -15,11 +16,12 @@ reference computed in float8 puts first.
 
 from __future__ import annotations
 
+from types import ModuleType
+
 import numpy as np
 import torch
 
 from .model import Dims
-from .reference import qwen3
 from .weights import draw_block
 
 #: the most requests a sample takes
@@ -60,8 +62,8 @@ def _inputs(picked: list) -> tuple[list[list[int]], list[list[int]], list[torch.
     return seqs, want, served
 
 
-def _blocks(m: Dims, seed: int, device):
-    return lambda b: draw_block(m, seed, b, device)
+def _blocks(arch: ModuleType, m: Dims, seed: int, device):
+    return lambda b: draw_block(arch, m, seed, b, device)
 
 
 def _gaps(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -76,7 +78,7 @@ def numbers(gaps: list[torch.Tensor]) -> dict:
             "wide_gap_pct": 100.0 * float((g > WIDE_GAP).float().mean())}
 
 
-def gaps(m: Dims, seed: int, picked: list, device, control: bool = False
+def gaps(arch: ModuleType, m: Dims, seed: int, picked: list, device, control: bool = False
          ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Per request, the gaps of the served tokens below the reference's
     best, and with ``control`` the gaps, below the same best, of the tokens
@@ -88,10 +90,10 @@ def gaps(m: Dims, seed: int, picked: list, device, control: bool = False
     for s, w, t in zip(seqs, want, served):
         top = None
         if control:
-            logits = qwen3.forward(m, _blocks(m, seed, device), [s], [w], device, precision="fp8")[0]
+            logits = arch.forward(m, _blocks(arch, m, seed, device), [s], [w], device, precision="fp8")[0]
             top = logits.argmax(dim=-1)
             del logits
-        ref = qwen3.forward(m, _blocks(m, seed, device), [s], [w], device)[0]
+        ref = arch.forward(m, _blocks(arch, m, seed, device), [s], [w], device)[0]
         out.append(_gaps(ref, t))
         if control:
             ctl.append(_gaps(ref, top))
@@ -99,12 +101,12 @@ def gaps(m: Dims, seed: int, picked: list, device, control: bool = False
     return out, ctl
 
 
-def served_gap(m: Dims, seed: int, picked: list, device) -> dict:
+def served_gap(arch: ModuleType, m: Dims, seed: int, picked: list, device) -> dict:
     """The numbers of the served tokens' gaps below the reference's best."""
-    served, _ = gaps(m, seed, picked, device)
+    served, _ = gaps(arch, m, seed, picked, device)
     return dict(numbers(served), tokens=sum(len(g) for g in served), requests=len(picked))
 
 
-def control_gap(m: Dims, seed: int, picked: list, device) -> dict:
+def control_gap(arch: ModuleType, m: Dims, seed: int, picked: list, device) -> dict:
     """The same numbers for the tokens the float8 reference puts first."""
-    return numbers(gaps(m, seed, picked, device, control=True)[1])
+    return numbers(gaps(arch, m, seed, picked, device, control=True)[1])

@@ -1,62 +1,71 @@
-"""A configuration file's model, as the sizes the harness counts with.
+"""The record of a model that the harness counts with.
 
-The file holds the model's public ``config.json`` under ``config``; this
-reads the keys of the Qwen3 / Qwen3-MoE family (and any Llama-shaped
-config that uses the same names) into one flat record.
+A configuration file holds the model's public ``config.json`` under
+``config``; its ``model_type`` names the architecture
+(``architectures/<model_type>.py``), whose ``dims`` reads that config into
+a ``Dims``: the global sizes, and the model's layers in order, each with
+its attention span, the attention parameters a token multiplies by and its
+FFN. ``work.py`` and the readers count from these alone. An architecture
+may extend the record with what its own weights, engine model and
+reference need.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
+from functools import cached_property
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class Ffn:
+    """One layer's FFN: dense of ``width``, or ``experts`` routed experts of
+    ``width`` each, ``top_k`` of them a token, beside a shared expert of
+    ``shared`` (0: none)."""
+
+    width: int
+    experts: int = 0
+    top_k: int = 0
+    shared: int = 0
+
+
+@dataclass(frozen=True)
+class Layer:
+    #: the keys one query sees, itself included; None: the whole context
+    span: Optional[int]
+    #: attention parameters a token multiplies by (q, k, v and output)
+    attn_params: int
+    ffn: Ffn
 
 
 @dataclass(frozen=True)
 class Dims:
     vocab: int
     d: int
-    inter: int
-    layers: int
     heads: int
     kv_heads: int
     hd: int
     eps: float
     theta: float
-    qk_norm: bool
-    experts: int
-    top_k: int
-    moe_inter: int
-    norm_topk: bool
     tie: bool
     dtype: str
+    stack: tuple[Layer, ...]
+
+    @property
+    def layers(self) -> int:
+        return len(self.stack)
 
     @property
     def dtype_bytes(self) -> int:
         return {"bfloat16": 2, "float16": 2, "float32": 4}[self.dtype]
 
+    @cached_property
+    def kinds(self) -> dict[Layer, int]:
+        """Each distinct layer, and how many of the model's layers it is."""
+        return dict(Counter(self.stack))
 
-#: model types whose attention normalises each head's q and k (Qwen3)
-QK_NORM_TYPES = ("qwen3", "qwen3_moe")
-
-
-def dims(hf: dict) -> Dims:
-    """``hf``: the ``config`` object of a configuration file."""
-    heads = hf["num_attention_heads"]
-    experts = hf.get("num_experts", 0) or 0
-    return Dims(
-        vocab=hf["vocab_size"],
-        d=hf["hidden_size"],
-        inter=hf["intermediate_size"],
-        layers=hf["num_hidden_layers"],
-        heads=heads,
-        kv_heads=hf.get("num_key_value_heads", heads),
-        hd=hf.get("head_dim") or hf["hidden_size"] // heads,
-        eps=float(hf["rms_norm_eps"]),
-        theta=float(hf["rope_theta"]),
-        qk_norm=hf["model_type"] in QK_NORM_TYPES,
-        experts=experts,
-        top_k=hf.get("num_experts_per_tok", 0) if experts else 0,
-        moe_inter=hf.get("moe_intermediate_size") or hf["intermediate_size"],
-        norm_topk=bool(hf.get("norm_topk_prob", True)),
-        tie=bool(hf.get("tie_word_embeddings", False)),
-        dtype=hf.get("torch_dtype", "bfloat16"),
-    )
+    @cached_property
+    def spans(self) -> dict[Optional[int], int]:
+        """Each distinct attention span, and how many layers have it."""
+        return dict(Counter(layer.span for layer in self.stack))

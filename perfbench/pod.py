@@ -2,8 +2,9 @@
 ``PodServer``, publishing KV events to a loopback ZMQ socket that the
 harness drains, and its warm-up.
 
-With the kernel build in ``bench.py``, the only code of the harness that
-imports the port (``llm_d_kv_cache_manager_tpu_torch``).
+With the kernel build in ``bench.py`` and each architecture's
+``engine_model``, the only code of the harness that imports the port
+(``llm_d_kv_cache_manager_tpu_torch``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import numpy as np
 import torch
 
 from .load import Plan
-from .model import Dims
 
 
 class EventSink:
@@ -53,22 +53,10 @@ class EventSink:
         self._ctx.term()
 
 
-def llama_config(m: Dims):
-    from llm_d_kv_cache_manager_tpu_torch.models.llama import LlamaConfig
-
-    return LlamaConfig(
-        vocab_size=m.vocab, hidden_size=m.d, intermediate_size=m.inter, n_layers=m.layers,
-        n_heads=m.heads, n_kv_heads=m.kv_heads, head_dim=m.hd, rope_theta=m.theta,
-        rms_norm_eps=m.eps, qk_norm=m.qk_norm, tie_word_embeddings=m.tie,
-        n_experts=m.experts, n_experts_per_tok=m.top_k or 2,
-        moe_intermediate_size=m.moe_inter if m.experts else None,
-        norm_topk_prob=m.norm_topk, dtype=getattr(torch, m.dtype),
-    )
-
-
-def build_pod(m: Dims, pod: dict, params: dict, seed: int, device, events_endpoint: str):
-    """A started ``PodServer`` over an ``Engine`` on ``params`` with the
-    configuration's deployment settings (``pod``)."""
+def build_pod(model, pod: dict, params: dict, seed: int, device, events_endpoint: str):
+    """A started ``PodServer`` over an ``Engine`` of the port's model
+    configuration ``model`` (the architecture's ``engine_model``) on
+    ``params``, with the configuration's deployment settings (``pod``)."""
     from llm_d_kv_cache_manager_tpu_torch.server import (
         BlockManagerConfig,
         Engine,
@@ -78,7 +66,7 @@ def build_pod(m: Dims, pod: dict, params: dict, seed: int, device, events_endpoi
     from llm_d_kv_cache_manager_tpu_torch.server.serve import PodServer, PodServerConfig
 
     ecfg = EngineConfig(
-        model=llama_config(m),
+        model=model,
         block_manager=BlockManagerConfig(
             total_pages=pod["total_pages"], page_size=pod["page_size"],
             host_pages=pod["host_pages"],

@@ -4,9 +4,11 @@
 for every step, its host wall interval, whether it prefilled, the decode
 model steps it ran, the contexts of the lanes it decoded (read from the
 scheduler before the step), the (chunk, context) of each row it
-prefilled, and the running total of output tokens the pod has committed.
-Everything is read from the engine's public state: ``scheduler``,
-``prefill_stats``, ``decode_stats`` and the sequences.
+prefilled, and the running total of output tokens the pod has committed;
+in the profiled slice also, for each distinct attention span of the
+model, the KV tokens the step's attention reads. Everything is read from
+the engine's public state: ``scheduler``, ``prefill_stats``,
+``decode_stats`` and the sequences.
 
 With ``arm`` the wrapper also profiles one slice of steps with
 ``torch.profiler`` (device activity only): it starts at a step boundary
@@ -42,12 +44,15 @@ class Step:
     #: the engine had no ready work when the step ended (the loop then
     #: waits for arrivals)
     idle_after: bool = False
-    #: in the profiled slice only: the distinct KV tokens the decoding
-    #: lanes' contexts cover (a page two lanes share counts once), and each
-    #: prefill row's distinct context tokens (shared with an earlier row of
-    #: the batch: counted once)
-    lane_kv_tokens: int = 0
-    row_ctx_tokens: list[int] = field(default_factory=list)
+    #: in the profiled slice only, for each attention span of the model:
+    #: at each model step j of the burst, the distinct KV tokens the
+    #: decoding lanes' attention reads, each lane's last ``span`` positions
+    #: at context lane + j (a token two lanes share counts once); and each
+    #: prefill row's distinct cached tokens its first query sees (within
+    #: span - 1 of it; a token an earlier row of the batch holds counts
+    #: once)
+    lane_kv_tokens: dict[Optional[int], tuple[int, ...]] = field(default_factory=dict)
+    row_ctx_tokens: dict[Optional[int], list[int]] = field(default_factory=dict)
 
     @property
     def wall(self) -> float:
@@ -74,8 +79,11 @@ class Slice:
 
 
 class StepProbe:
-    def __init__(self, engine):
+    def __init__(self, engine, spans: tuple[Optional[int], ...]):
+        """``spans``: the model's distinct attention spans (None: the
+        whole context)."""
         self.engine = engine
+        self.spans = spans
         self.steps: list[Step] = []
         self._finished_tokens = 0
         self._orig = engine.step
@@ -106,7 +114,9 @@ class StepProbe:
             self._start_slice()
         profiling = self.slice is not None and self.slice.i1 < 0
         lanes = [s.num_tokens for s in sch.running]
-        lane_kv = _distinct_tokens(sch.running, lanes, self.engine.page_size) if profiling else 0
+        k = eng.config.decode_steps_per_iter
+        lane_kv = (_lane_kv_tokens(sch.running, lanes, eng.page_size, self.spans, k)
+                   if profiling else {})
         pending = list(sch.waiting) + list(sch.prefilling)
         before = {id(s): s.num_prefilled for s in pending}
         n_pre = eng.prefill_stats["dispatches"]
@@ -124,14 +134,13 @@ class StepProbe:
                     rows.append((s.num_prefilled - start, start))
                     row_seqs.append(s)
         self._finished_tokens += sum(s.num_generated for s in finished)
-        step = Step(t0, t1, prefill, dsteps, eng.config.decode_steps_per_iter,
-                    lanes if dsteps else [], rows,
+        step = Step(t0, t1, prefill, dsteps, k, lanes if dsteps else [], rows,
                     self._finished_tokens + self._live_tokens(),
                     idle_after=not eng.has_ready_work,
-                    lane_kv_tokens=lane_kv if dsteps else 0)
+                    lane_kv_tokens=lane_kv if dsteps else {})
         if profiling and rows:
-            step.row_ctx_tokens = _distinct_ctx_per_row(row_seqs, [c for _, c in rows],
-                                                        self.engine.page_size)
+            step.row_ctx_tokens = _row_ctx_tokens(row_seqs, [c for _, c in rows],
+                                                  eng.page_size, self.spans)
         self.steps.append(step)
         sl = self.slice
         if sl is not None and sl.i1 < 0:
@@ -187,29 +196,56 @@ class StepProbe:
         return sl
 
 
-def _distinct_tokens(seqs, ctx_lens: list[int], page_size: int) -> int:
-    """Distinct KV tokens the contexts of ``seqs`` cover: a page several
-    lanes hold (a shared prefix) counts once, with the most tokens any of
-    them uses in it."""
-    used: dict[int, int] = {}
-    for s, n in zip(seqs, ctx_lens):
-        bt = s.block_table
-        for i in range(-(-n // page_size)):
-            if i < len(bt):
-                used[bt[i]] = max(used.get(bt[i], 0), min(page_size, n - i * page_size))
-    return sum(used.values())
-
-
-def _distinct_ctx_per_row(seqs, ctx_lens: list[int], page_size: int) -> list[int]:
-    """Each prefill row's context tokens not already held by an earlier row
-    of the batch."""
-    seen: set[int] = set()
+def _distinct_tokens(seqs, ranges: list[tuple[int, int]], page_size: int) -> list[int]:
+    """For each of ``seqs`` in turn, the tokens of its positions [lo, hi)
+    (``ranges``) not already counted: a page slot several sequences hold
+    (a shared prefix) counts once, for the first that reads it. A window's
+    edge may fall inside a page: slots are counted, not pages."""
+    seen: dict[int, int] = {}  # page: bit mask of its slots counted
+    full = (1 << page_size) - 1
     out = []
-    for s, n in zip(seqs, ctx_lens):
-        pages = s.block_table[: n // page_size]
-        out.append(page_size * sum(p not in seen for p in pages))
-        seen.update(pages)
+    for s, (lo, hi) in zip(seqs, ranges):
+        first, last = lo // page_size, min(-(-hi // page_size), len(s.block_table))
+        new = 0
+        for i, page in enumerate(s.block_table[first:last], first):
+            mask = full
+            if i == first or i == last - 1:  # the range's edges may cut a page
+                mask &= (full << max(lo - i * page_size, 0)) & (full >> max((i + 1) * page_size - hi, 0))
+            fresh = mask & ~seen.get(page, 0)
+            if fresh:
+                new += fresh.bit_count()
+                seen[page] = seen.get(page, 0) | fresh
+        out.append(new)
     return out
+
+
+def _lane_kv_tokens(seqs, ctx_lens: list[int], page_size: int, spans, k: int
+                    ) -> dict[Optional[int], tuple[int, ...]]:
+    """For each span, at each model step j < k of a burst: the distinct KV
+    tokens the lanes at contexts ``ctx_lens`` + j read. Positions below a
+    lane's context are read from its pages; the j positions it adds in the
+    burst are its own, and counted as such."""
+    memo: dict[tuple, int] = {}
+    out = {}
+    for span in spans:
+        per_step = []
+        for j in range(k):
+            ranges = tuple((0 if span is None else max(0, n + j - span), n) for n in ctx_lens)
+            if ranges not in memo:
+                memo[ranges] = sum(_distinct_tokens(seqs, list(ranges), page_size))
+            per_step.append(memo[ranges] + len(ctx_lens) * (j if span is None else min(j, span)))
+        out[span] = tuple(per_step)
+    return out
+
+
+def _row_ctx_tokens(seqs, ctx_lens: list[int], page_size: int, spans
+                    ) -> dict[Optional[int], list[int]]:
+    """For each span, each prefill row's cached tokens that its first query
+    sees (those within span - 1 of it) and no earlier row of the batch
+    holds."""
+    return {span: _distinct_tokens(
+        seqs, [(0 if span is None else max(0, n - span + 1), n) for n in ctx_lens], page_size)
+        for span in spans}
 
 
 def merge(intervals: list[tuple[float, float]]) -> list[tuple[float, float]]:

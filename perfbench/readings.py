@@ -60,7 +60,8 @@ def main(argv=None) -> int:
         picked = check.pick(run.sample, seed, tokens)
         out = {"seed": seed, "failed": sum(run.failed(r) for r in run.sample)}
         t = time.monotonic()
-        served, ctl = check.gaps(bench.m, seed, picked, bench.device, control=seed in controls)
+        served, ctl = check.gaps(bench.arch, bench.m, seed, picked, bench.device,
+                                  control=seed in controls)
         if seed in seeds:
             out.update(check.numbers(served), tokens=sum(len(g) for g in served), requests=len(picked))
         if ctl:

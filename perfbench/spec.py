@@ -4,9 +4,11 @@
 cell ``<name>`` is ``workloads/<name>.json`` here (its configuration, mix,
 rate and the limit of its check); its configuration is
 ``configs/<config>.json``; its mix is ``traffic/<traffic>.json``, whose
-``kind`` names the generator ``traffic_kinds/<kind>.py``; each metric is
-read by ``metrics/<metric>.py``. A new cell, configuration, mix, kind or
-metric is a new file and an entry: nothing here changes.
+``kind`` names the generator ``traffic_kinds/<kind>.py``; the
+configuration's ``model_type`` names its architecture
+``architectures/<model_type>.py``; each metric is read by
+``metrics/<metric>.py``. A new cell, configuration, architecture, mix,
+kind or metric is a new file and an entry: nothing here changes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
@@ -82,10 +85,12 @@ def load_cell(name: str, root: Path = HERE, benchmark: Optional[dict] = None) ->
 
 def load_module(path: Path) -> ModuleType:
     """Import the file ``path`` (its name may hold dots, as a metric's
-    does) as a module of its own."""
+    does) as a module of its own, entered in ``sys.modules`` (a dataclass
+    in it looks its module up there)."""
     modname = "perfbench_" + re.sub(r"\W", "_", str(path.relative_to(path.parent.parent)))
     spec = importlib.util.spec_from_file_location(modname, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[modname] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -96,3 +101,7 @@ def metric(name: str, root: Path = HERE) -> ModuleType:
 
 def traffic_kind(kind: str, root: Path = HERE) -> ModuleType:
     return load_module(root / "traffic_kinds" / f"{kind}.py")
+
+
+def architecture(model_type: str, root: Path = HERE) -> ModuleType:
+    return load_module(root / "architectures" / f"{model_type}.py")

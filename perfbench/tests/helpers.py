@@ -19,9 +19,10 @@ def tiny_tree(tmp: Path, cells=("tiny_qwen3_moe.tiny_sessions", "tiny_qwen3.tiny
     with the tiny cells appended to its workloads and metric lists."""
     root = tmp / "perfbench"
     shutil.copytree(PERFBENCH, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for sub in ("configs", "traffic", "workloads"):
+    for sub in ("architectures", "configs", "reference", "traffic", "workloads"):
         for f in (TINY / sub).iterdir():
-            shutil.copy(f, root / sub / f.name)
+            if f.is_file():
+                shutil.copy(f, root / sub / f.name)
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     for name in cells:
         config, traffic = name.split(".")

@@ -12,7 +12,7 @@ from perfbench import check
 from perfbench import run as run_mod
 from perfbench.spec import HERE, load_cell, metric, traffic_kind
 
-from helpers import REPO, tiny_tree
+from helpers import REPO, TINY, tiny_tree
 
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -93,3 +93,33 @@ def test_cell_added_from_new_files_only(tmp_path):
     result = json.loads(out.getvalue().splitlines()[-1])
     assert result["correct"] is True and result["metrics"]["prompt_tokens_mean"]["value"] > 0
     assert before == {p.name: p.read_bytes() for p in HERE.rglob("*.py") if "tests" not in p.parts}
+
+
+def test_architecture_added_from_new_files_only(tmp_path):
+    """A copy of the tree plus a new architecture as new files only (a
+    Qwen2-type model: q, k, v biases, no qk-norm; its architecture, its
+    plain reference, a configuration and a cell) runs the new cell
+    ``correct`` on the CPU, with no file of the tree edited."""
+    root, bench = tiny_tree(tmp_path, cells=("tiny_qwen2.tiny_sessions",))
+    new = {"architectures/qwen2.py", "reference/qwen2.py", "configs/tiny_qwen2.json",
+           "workloads/tiny_qwen2.tiny_sessions.json"}
+    added = set()
+    for p in root.rglob("*"):
+        rel = p.relative_to(root)
+        if not p.is_file() or "__pycache__" in rel.parts:
+            continue
+        if (HERE / rel).exists():
+            assert p.read_bytes() == (HERE / rel).read_bytes(), rel
+        else:
+            added.add(rel.as_posix())
+    assert new <= added and all((TINY / a).is_file() for a in added)
+    before = {p: p.read_bytes() for p in HERE.rglob("*.py") if "tests" not in p.parts}
+    cell = load_cell("tiny_qwen2.tiny_sessions", root=root, benchmark=bench)
+    out, err = io.StringIO(), io.StringIO()
+    assert run_mod.run_cell(cell, 2**31 + 5, 2.0, True, "cpu", time.monotonic(), out=out, err=err) == 0
+    result = json.loads(out.getvalue().splitlines()[-1])
+    assert result["correct"] is True, err.getvalue()
+    assert result["attempted"] > 0 and result["failed"] == 0
+    assert result["checks"]["logit_gap"]["value"] <= result["checks"]["logit_gap"]["limit"]
+    assert {"mfu.decode", "mfu.prefill", "prefix_hit_share"} <= set(result["metrics"])
+    assert before == {p: p.read_bytes() for p in HERE.rglob("*.py") if "tests" not in p.parts}

@@ -9,9 +9,8 @@ from types import SimpleNamespace
 import pytest
 
 from perfbench import program
-from perfbench.model import Dims
 from perfbench.probe import Step
-from perfbench.spec import metric
+from perfbench.spec import architecture, metric
 from perfbench.work import bound_s
 
 MS = 1_000_000  # ns
@@ -26,9 +25,11 @@ NEW = ("decode_device_ms", "prefill_pad_share", "k4_decode_roofline", "idle_shar
 K4_NAME = "void (anonymous namespace)::decode_kernel<__nv_bfloat16, __nv_bfloat16>(Params)"
 K1_NAME = "void (anonymous namespace)::split_decode_kernel<__nv_bfloat16, 128, 8>(Params)"
 
-M30 = Dims(vocab=151936, d=2048, inter=6144, layers=48, heads=32, kv_heads=4, hd=128,
-           theta=1e6, eps=1e-6, qk_norm=True, tie=False, experts=128, top_k=8,
-           moe_inter=768, norm_topk=True, dtype="bfloat16")
+M30 = architecture("qwen3_moe").dims(dict(
+    vocab_size=151936, hidden_size=2048, intermediate_size=6144, num_hidden_layers=48,
+    num_attention_heads=32, num_key_value_heads=4, head_dim=128, rope_theta=1e6, rms_norm_eps=1e-6,
+    model_type="qwen3_moe", tie_word_embeddings=False, num_experts=128, num_experts_per_tok=8,
+    moe_intermediate_size=768, norm_topk_prob=True, torch_dtype="bfloat16"))
 
 
 def _entry(index, kind, host, device=(), **counters):

@@ -1,21 +1,20 @@
 """Random weights from the run's seed, in the port's parameter layout.
 
-The tree is the port's (``embed`` [V, d], ``lm_head`` [d, V],
-``final_norm``, and per layer ``attn_norm``, ``wq`` / ``wk`` / ``wv`` /
-``wo`` as [in, out], ``q_norm`` / ``k_norm``, ``mlp_norm``, then either
-``router`` [d, E] with ``w_gate`` / ``w_up`` [E, d, f] and ``w_down``
-[E, f, d], or dense ``w_gate`` / ``w_up`` [d, f] and ``w_down`` [f, d]).
-Each block (block 0 the embedding, head and final norm; block i + 1
-layer i) is one buffer in the served dtype, filled by one ``normal_`` call
-from a generator on the device seeded from (seed, block); every matrix is
-then scaled by fan_in^-0.5 and every norm set to 1. A block can be drawn
-again alone, which is how the reference gets its weights after the
-program's are freed.
+The tree is the port's: ``embed``, ``final_norm`` and the head at the top,
+and a dict a layer under ``layers``; the architecture's ``block_specs``
+names each block's tensors with their shapes and fan-ins
+(``architectures/``). Each block (block 0 the embedding, head and final
+norm; block i + 1 layer i) is one buffer in the served dtype, filled by
+one ``normal_`` call from a generator on the device seeded from (seed,
+block); every tensor with a fan-in is then scaled by fan_in^-0.5 and every
+norm set to 1. A block can be drawn again alone, which is how the
+reference gets its weights after the program's are freed.
 """
 
 from __future__ import annotations
 
 import hashlib
+from types import ModuleType
 from typing import Optional
 
 import torch
@@ -25,34 +24,6 @@ from .model import Dims
 #: every tensor starts at a multiple of this many elements of its block
 #: (512 bytes in bf16: the TMA descriptors of the grouped matmul want 16)
 ALIGN = 256
-
-
-def block_specs(m: Dims, block: int) -> list[tuple[str, tuple[int, ...], Optional[int]]]:
-    """(name, shape, fan_in) of each tensor of a block; fan_in None = a norm."""
-    if block == 0:
-        specs = [("embed", (m.vocab, m.d), m.d), ("final_norm", (m.d,), None)]
-        if not m.tie:
-            specs.append(("lm_head", (m.d, m.vocab), m.d))
-        return specs
-    d, hd, nq, nkv = m.d, m.hd, m.heads, m.kv_heads
-    specs = [
-        ("attn_norm", (d,), None),
-        ("wq", (d, nq * hd), d),
-        ("wk", (d, nkv * hd), d),
-        ("wv", (d, nkv * hd), d),
-        ("wo", (nq * hd, d), nq * hd),
-        ("mlp_norm", (d,), None),
-    ]
-    if m.qk_norm:
-        specs += [("q_norm", (hd,), None), ("k_norm", (hd,), None)]
-    if m.experts:
-        e, f = m.experts, m.moe_inter
-        specs += [("router", (d, e), d), ("w_gate", (e, d, f), d),
-                  ("w_up", (e, d, f), d), ("w_down", (e, f, d), f)]
-    else:
-        specs += [("w_gate", (d, m.inter), d), ("w_up", (d, m.inter), d),
-                  ("w_down", (m.inter, d), m.inter)]
-    return specs
 
 
 def _layout(specs) -> tuple[list[tuple[str, tuple, Optional[int], int]], int]:
@@ -71,10 +42,11 @@ def block_seed(seed: int, block: int) -> int:
     return int.from_bytes(digest[:8], "little") & (2**63 - 1)
 
 
-def fill_block(m: Dims, seed: int, block: int, buf: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Draw block ``block`` into ``buf`` (its flat buffer) and return its
-    tensors, views of ``buf``."""
-    layout, _ = _layout(block_specs(m, block))
+def fill_block(arch: ModuleType, m: Dims, seed: int, block: int,
+               buf: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Draw block ``block`` of architecture ``arch`` into ``buf`` (its
+    flat buffer) and return its tensors, views of ``buf``."""
+    layout, _ = _layout(arch.block_specs(m, block))
     gen = torch.Generator(device=buf.device).manual_seed(block_seed(seed, block))
     buf.normal_(0.0, 1.0, generator=gen)
     out = {}
@@ -95,26 +67,26 @@ def dtype_of(m: Dims) -> torch.dtype:
     return getattr(torch, m.dtype)
 
 
-def draw_block(m: Dims, seed: int, block: int, device) -> dict[str, torch.Tensor]:
+def draw_block(arch: ModuleType, m: Dims, seed: int, block: int, device) -> dict[str, torch.Tensor]:
     """Block ``block`` alone, in a buffer of its own."""
-    _, n = _layout(block_specs(m, block))
+    _, n = _layout(arch.block_specs(m, block))
     buf = torch.empty(n, dtype=dtype_of(m), device=device)
-    return fill_block(m, seed, block, buf)
+    return fill_block(arch, m, seed, block, buf)
 
 
 class Weights:
     """Every block of a model, and the port's tree of views into them."""
 
-    def __init__(self, m: Dims, seed: int, device):
-        self.m = m
+    def __init__(self, arch: ModuleType, m: Dims, seed: int, device):
+        self.arch, self.m = arch, m
         self.buffers = [
-            torch.empty(_layout(block_specs(m, b))[1], dtype=dtype_of(m), device=device)
+            torch.empty(_layout(arch.block_specs(m, b))[1], dtype=dtype_of(m), device=device)
             for b in range(m.layers + 1)
         ]
         self.params = self._fill(seed)
 
     def _fill(self, seed: int) -> dict:
-        blocks = [fill_block(self.m, seed, b, buf) for b, buf in enumerate(self.buffers)]
+        blocks = [fill_block(self.arch, self.m, seed, b, buf) for b, buf in enumerate(self.buffers)]
         params = dict(blocks[0])
         params["layers"] = blocks[1:]
         return params

@@ -5,13 +5,17 @@ Peaks are NVIDIA's published figures for one H100 SXM (dense bf16, HBM3);
 operations over the compute peak and the bytes over the memory peak (the
 arithmetic of ``chip_smoke.bound_ms``). Work is what the inputs need:
 each lane's context, each prefill row's chunk and context, the model's
-active parameters. It does not count what a kernel happens to do (padding,
-re-reads), so a kernel that replaces another is counted the same.
+active parameters, summed over the model's layers, each with its own
+attention span and FFN (``model.Dims``). It does not count what a kernel
+happens to do (padding, re-reads), so a kernel that replaces another is
+counted the same.
 """
 
 from __future__ import annotations
 
-from .model import Dims
+from typing import Optional
+
+from .model import Dims, Ffn
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
@@ -21,39 +25,52 @@ def bound_s(n_bytes: float, flops: float) -> float:
     return max(n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS)
 
 
-def attn_params(m: Dims) -> int:
-    """q, k, v and output projections of one layer."""
-    return m.d * (m.heads + 2 * m.kv_heads) * m.hd + m.heads * m.hd * m.d
-
-
-def ffn_active_params(m: Dims) -> int:
-    """FFN parameters one token multiplies by in one layer: the router and
-    ``top_k`` experts of an MoE, or the whole dense FFN."""
-    if m.experts:
-        return m.d * m.experts + m.top_k * 3 * m.d * m.moe_inter
-    return 3 * m.d * m.inter
+def ffn_active_params(m: Dims, ffn: Ffn) -> int:
+    """FFN parameters one token multiplies by in one layer: the router,
+    ``top_k`` experts and any shared expert of a routed FFN, or the whole
+    dense FFN."""
+    if ffn.experts:
+        return m.d * ffn.experts + (ffn.top_k * ffn.width + ffn.shared) * 3 * m.d
+    return 3 * m.d * ffn.width
 
 
 def body_params(m: Dims) -> int:
     """Active parameters a token passes through below the head."""
-    return m.layers * (attn_params(m) + ffn_active_params(m))
+    return sum(n * (layer.attn_params + ffn_active_params(m, layer.ffn))
+               for layer, n in m.kinds.items())
 
 
-def attn_flops(m: Dims, queries: int, ctx_before: int) -> float:
+def attended_keys(queries: int, ctx_before: int, span: Optional[int] = None) -> float:
+    """Keys that ``queries`` consecutive tokens after ``ctx_before``
+    earlier ones see, each itself and at most ``span`` keys in all (None:
+    the whole context): the sum over i = 1..queries of
+    min(ctx_before + i, span)."""
+    last = ctx_before + queries
+    if span is None or last <= span:
+        return queries * ctx_before + queries * (queries + 1) / 2
+    first = ctx_before + 1
+    if first >= span:
+        return queries * span
+    # first..span grow one key a query; the rest see span each
+    return (first + span) * (span - first + 1) / 2 + (last - span) * span
+
+
+def attn_flops(m: Dims, queries: int, ctx_before: int, span: Optional[int] = None) -> float:
     """QK^T and PV of ``queries`` consecutive tokens over ``ctx_before``
-    earlier tokens plus themselves (causal), one layer, all heads."""
-    keys = queries * ctx_before + queries * (queries + 1) / 2
-    return 4.0 * m.heads * m.hd * keys
+    earlier tokens plus themselves (causal, within ``span``), one layer,
+    all heads."""
+    return 4.0 * m.heads * m.hd * attended_keys(queries, ctx_before, span)
 
 
 def decode_flops(m: Dims, ctx: int) -> float:
     """One lane's model step at context ``ctx`` (the current token
     included): the body, attention over the context and the head."""
-    return 2.0 * (body_params(m) + m.d * m.vocab) + m.layers * attn_flops(m, 1, ctx - 1)
+    return 2.0 * (body_params(m) + m.d * m.vocab) + sum(
+        n * attn_flops(m, 1, ctx - 1, span) for span, n in m.spans.items())
 
 
 def prefill_flops(m: Dims, chunk: int, ctx: int) -> float:
     """One prefill row: ``chunk`` new tokens over ``ctx`` cached ones; the
     head runs for the sampled (last) position only."""
     return (2.0 * body_params(m) * chunk + 2.0 * m.d * m.vocab
-            + m.layers * attn_flops(m, chunk, ctx))
+            + sum(n * attn_flops(m, chunk, ctx, span) for span, n in m.spans.items()))
